@@ -3,7 +3,7 @@
 
 PYTHON ?= python
 
-.PHONY: all native test bench golden verify blender-zip clean
+.PHONY: all native test bench golden smoke blender-zip clean
 
 all: native
 
@@ -12,7 +12,7 @@ native:
 	$(PYTHON) native/build.py
 
 test:
-	$(PYTHON) -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu $(PYTHON) -m pytest tests/ -x -q
 
 bench: native
 	$(PYTHON) bench.py
@@ -20,10 +20,9 @@ bench: native
 golden: native
 	$(PYTHON) tools/golden_check.py
 
-# full TPU golden sweep + bench, then machine-regenerate every published
-# table (README + BASELINE.json) from the tool output
-verify: native
-	$(PYTHON) tools/verify_publish.py
+# end-to-end check of the render path on one GPU
+smoke:
+	$(PYTHON) chip_smoke.py
 
 # stage the Blender add-on as an installable zip (bundles crt_tpu)
 blender-zip:
@@ -31,5 +30,5 @@ blender-zip:
 
 clean:
 	rm -f native/libcrt_accel.so crt_tpu_blender.zip
-	rm -rf .jax_cache results_tpu
+	rm -rf .jax_cache
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

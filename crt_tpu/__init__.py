@@ -1,8 +1,7 @@
-"""crt_tpu — a TPU-native differentiable ray-tracing framework.
+"""crt_tpu — a differentiable ray-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
-``bvpav/chaos-ray-tracing-course-2025`` CPU renderer (reference mounted at
-/root/reference):
+``bvpav/chaos-ray-tracing-course-2025`` CPU renderer:
 
 - ``.crtscene`` JSON scenes -> frozen SoA pytrees (scene/)
 - vectorized camera ray generation, wavefront Whitted shading, four material

@@ -7,7 +7,7 @@ The reference exposes (py_crt_module.cpp:135-169):
   - a ``RendererSettings`` 6-tuple type
   - default constants (DEFAULT_SCENE_BUCKET_SIZE, ...)
 
-This module provides the same names and contracts on top of the TPU
+This module provides the same names and contracts on top of the JAX
 renderer so the Blender add-on layer can swap backends with an import
 change.  ``render_scene_from_dict_array`` is the efficient array variant
 (float32 [H, W, 4], V-flipped).

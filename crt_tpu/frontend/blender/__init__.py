@@ -1,4 +1,4 @@
-"""Blender add-on: render with the crt_tpu TPU ray tracer.
+"""Blender add-on: render with the crt_tpu ray tracer.
 
 Functional counterpart of the reference add-on (reference src/blender/:
 engine, json bridge, properties, UI, ops) rebuilt against the crt_tpu
@@ -14,7 +14,7 @@ bl_info = {
     "author": "crt_tpu",
     "version": (0, 1, 0),
     "blender": (4, 5, 0),
-    "description": "TPU-native CRT ray tracer render engine + .crtscene IO",
+    "description": "CRT ray tracer (JAX) render engine + .crtscene IO",
     "category": "Render",
 }
 

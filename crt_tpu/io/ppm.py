@@ -29,7 +29,7 @@ def format_ppm(image, max_color_component: int = 255) -> str:
     """Format a [H,W,3] float image as an ASCII P3 string.
 
     Routes through the native formatter (native/crt_ppm.cpp — the Python
-    string loop costs ~1.3 s for a 1080p frame, 60x the render time) and
+    string loop costs ~1.3 s of host time for a 1080p frame) and
     falls back to the byte-identical Python implementation when the
     native library is unavailable.
     """

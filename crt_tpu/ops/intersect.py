@@ -1,7 +1,7 @@
 """Ray-scene intersection.
 
 The reference intersects one ray against one triangle at a time with an
-explicit traversal stack (crt_intersection.cpp:47-93, :109-136).  On TPU the
+explicit traversal stack (crt_intersection.cpp:47-93, :109-136).  Here the
 same plane + three-half-space test is re-derived so the inner loop becomes a
 *matmul*:
 
@@ -13,8 +13,9 @@ normals ``m_ij = n_j x e_ij`` (i = 0,1,2).  For a ray (o, d):
              = (m_ij . o - m_ij . v_ij) + t * (m_ij . d)   # scalar triple id.
 
 so an R-ray x T-triangle intersection needs two [R,3] @ [3,4T] matmuls (for
-``d`` and ``o`` against the stacked (n, m0, m1, m2) table) — MXU work — plus a
-short elementwise chain and a masked min-reduction on the VPU.  No ray ever
+``d`` and ``o`` against the stacked (n, m0, m1, m2) table) — at
+``Precision.HIGHEST``, never TF32 — plus a short elementwise chain and a
+masked min-reduction.  No ray ever
 branches; validity is a mask:
 
     valid = |n.d| >= 1e-6  AND  (front_face OR no_backface_culling)

@@ -1,42 +1,44 @@
-"""Pallas TPU kernel: tile-binned cluster-streaming intersection.
+"""Pallas GPU kernels (Triton route): tile-binned cluster-walk intersection.
 
 The reference traverses a midpoint-split KD tree per ray with a heap stack
-(crt_intersection.cpp:109-136).  A per-ray stack walk is the wrong shape for
-a vector machine, and the reference tree duplicates straddling triangles
-heavily (~10x leaf entries on the course benchmark scene), so the TPU path
-uses its own acceleration structure + a two-phase scheme:
+(crt_intersection.cpp:109-136).  The reference tree duplicates straddling
+triangles heavily (~10x leaf entries on the course benchmark scene), so the
+fast path uses its own acceleration structure and a two-phase scheme:
 
   Clustering (once per scene):
     - triangles are sorted by the Morton code of their centroid and grouped
-      into consecutive clusters of 16 — every triangle in EXACTLY ONE
-      cluster (no duplication), cluster AABB = union of member AABBs.
-      Spatially local, tight, and trivially streamable.
+      into consecutive clusters of CLUSTER_SIZE — every triangle in EXACTLY
+      ONE cluster (no duplication), cluster AABB = union of member AABBs;
+    - each cluster's test constants are one contiguous cluster-major record
+      ([L, FIELDS, S] f32, see cluster_records), so a cluster is one
+      contiguous read from device memory (and, after the first tile that
+      walks it, from L2).
 
   Phase A (plain XLA, fused into the surrounding jit):
-    - rays are grouped into tiles of TILE_RAYS consecutive rays (primary and
-      shadow wavefronts are pixel-ordered, so tiles are spatially coherent);
-    - each tile gets a conservative *frustum*: component-wise origin and
-      direction intervals;
-    - every tile frustum is tested against every cluster AABB with an
-      interval slab test (vectorized [tiles, clusters]);
-    - hit cluster ids are compacted to the front of a per-tile list (stable
-      argsort) with a count.
+    - rays are grouped into tiles of TILE_RAYS consecutive rays (the
+      renderer orders rays in TILE_H x TILE_W pixel blocks, so tiles are
+      spatially coherent);
+    - each tile gets a conservative *frustum* (component-wise origin and
+      direction intervals; for shadow wavefronts the light-side shaft);
+    - every tile frustum is tested against every cluster AABB;
+    - hit cluster ids are compacted to the front of a per-tile list with a
+      count (cumsum + scatter).
 
-  Phase B (this Pallas kernel, grid = one program per tile):
-    - the tile's rays sit in VMEM as [3, TILE_RAYS] planes (rays on lanes);
-    - a scalar ``fori_loop`` walks the tile's compacted cluster list (SMEM);
-    - each cluster's 16 triangles are one dynamic slice of the cluster-major
-      constant tables (VMEM-resident);
-    - the reference's plane + three-half-space test (crt_intersection.cpp:
-      47-93) runs as [16, TILE_RAYS] VPU ops — 16 triangles x 128 rays per
-      instruction burst, no divergence;
-    - per-cluster winners merge into the running (best_t, best_tri) with
-      min-triangle-id tie-breaking.
+  Phase B (these kernels, one program per BLOCK_RAYS rays):
+    - a program loads its rays and its tile's count and cluster list from
+      device memory (blocks run in parallel, in no order; nothing is
+      carried between programs);
+    - it walks the list with a dynamic trip count; each cluster's S
+      triangles are tested against the block's rays as [S, BLOCK_RAYS]
+      f32 tensors (the reference's plane + three-half-space test,
+      crt_intersection.cpp:47-93);
+    - per-cluster winners merge into a running (best_t, best_tri) held in
+      registers; exact-t ties go to the smallest triangle id.
 
   Conservative frustums only ever ADD clusters to a tile's list, so the
-  kernel is exact: every triangle a ray could hit is tested for it.
+  kernels are exact: every triangle a ray could hit is tested for it.
 
-Differentiation: the kernel produces discrete hit ids + distances that are
+Differentiation: the kernels produce discrete hit ids + distances that are
 stop-gradiented by the caller; shading recomputes attributes differentiably
 (see crt_tpu.ops.shade.hit_attributes).
 """
@@ -44,64 +46,38 @@ stop-gradiented by the caller; shading recomputes attributes differentiably
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from crt_tpu.ops import vecmath
 from crt_tpu.ops.intersect import PARALLEL_EPS, Hit
 
-# Tuned on the 14-01 benchmark scene (v5e): 32x32-pixel tiles (1024 rays)
-# amortize per-program overhead best; clusters of 16 triangles tie with 32.
-TILE_RAYS = 1024
+# Binning tile: the frustum granularity of phase A.  Must equal the
+# renderer's pixel tile (renderer.TILE_H * TILE_W) so frusta stay tight.
+TILE_RAYS = 256
+# Rays per kernel program (divides TILE_RAYS): the programs of one tile
+# share its cluster list.
+BLOCK_RAYS = 128
 CLUSTER_SIZE = 16
-# Clusters tested per trace-kernel loop iteration (see _trace_kernel):
-# amortizes per-iteration loop bookkeeping over several 16 x TR bursts.
-CLUSTER_UNROLL = int(os.environ.get("CRT_CLUSTER_UNROLL", "4"))
-# Bounding-cone refinement of the apex shadow-shaft binning (see
-# _apex_cone_mask).  Occlusion-exact; flag kept for A/B.
-_SHADOW_CONE = os.environ.get("CRT_SHADOW_CONE", "1") != "0"
-# Projected 2-D wedge refinement (see _apex_wedge_mask).  Occlusion-exact.
-_SHADOW_WEDGE = os.environ.get("CRT_SHADOW_WEDGE", "1") != "0"
-# Tiles per grid step for the DENSE (primary) trace (1 = one tile/step).
-# Amortizes per-step fixed costs without loosening 1024-lane binning.
-_TILE_MERGE = int(os.environ.get("CRT_TILE_MERGE", "1"))
-# Occlusion-specialized shadow kernel (see _occl_kernel_compact).
-# Boolean-identical to closest-hit-then-compare; flag kept for A/B.
-_SHADOW_OCCL_KERNEL = os.environ.get("CRT_SHADOW_OCCL_KERNEL", "1") != "0"
-# Sub-frustum union factor for apex binning (1 = one shaft per tile).
-# Occlusion-exact; MEASURED DEAD on 14-01 (pairs 23966 -> 23201/22430 at
-# sub=4/8, frame time flat-to-worse): per-tile hit-point boxes are already
-# tight because 32x32 pixel blocks land on contiguous surface — kept as an
-# opt-in knob for scenes with heavy per-tile depth spread.
-_SHADOW_SUBF = int(os.environ.get("CRT_SHADOW_SUBFRUSTA", "1"))
-# Near-origin-first cluster walk + in-kernel early exit for closest-hit
-# traces (bin_rays near_order; built for incoherent GI/bounce wavefronts
-# whose direction frustums degenerate).  Off by default pending the TPU
-# A/B — flips results only on cross-cluster exact-t ties.
-_NEAR_EXIT = os.environ.get("CRT_NEAR_EXIT", "0") != "0"
-# All-blocked while-exit + near-origin-first order for the
-# occlusion-specialized shadow kernel (inactive lanes seed blocked, the
-# stream path's convention).  Off by default pending the TPU A/B.
-_OCCL_EXIT = os.environ.get("CRT_OCCL_EXIT", "0") != "0"
-# In-kernel shadow directions (w-parameterized occlusion, s <= 1): skips
-# building/retiling the 8M-lane normalized-direction tensor entirely.
-_APEX_W = os.environ.get("CRT_APEX_W", "1") != "0"
-# In-kernel per-cluster LANE GATE for the w-shadow kernel: before each
-# 16-member walk, slab-test every lane's segment against the cluster box
-# and skip the walk when none can reach it (the stream path's lane-exact
-# 2.33x over-admission measurement, applied at walk time).  A/B flag.
-_APEX_LANE_GATE = os.environ.get("CRT_APEX_LANE_GATE", "0") != "0"
+# Triton launch parameters of both kernels.
+NUM_WARPS = 4
+NUM_STAGES = 1
+
+# Record rows (see cluster_records): face normal, n.v0, three edge normals,
+# three edge offsets, not-backface-culled flag, triangle id.
+_N, _NV0, _M, _C, _NOBF, _TID = 0, 3, 4, 13, 16, 17
+FIELDS = 18
+_BIG_ID = 2**30
 
 
 def _out_vma(*xs) -> frozenset:
     """Union varying-manual-axes over launch inputs.  Inside shard_map
-    (the rays-sharded production path runs these kernels per device) the
-    out_shape aval must name the mesh axes the output varies over; a bare
+    (the sharded paths run these kernels per device) the out_shape aval
+    must name the mesh axes the output varies over; a bare
     ShapeDtypeStruct has vma=None, which the manual-axes checker rejects.
     Empty (a no-op) outside shard_map."""
     out = frozenset()
@@ -116,12 +92,12 @@ def _out_vma(*xs) -> frozenset:
 class ClusterTables(NamedTuple):
     """Cluster-major padded triangle constants (built once per scene)."""
 
-    n: jnp.ndarray  # [L, 16, 3] face normals (0 for pad)
-    nv0: jnp.ndarray  # [L, 16] n . v0
-    m: jnp.ndarray  # [L, 16, 9] edge normals (n x e_i), flattened
-    c: jnp.ndarray  # [L, 16, 3] m_i . v_i  (pad rows get c=1 -> always fail)
-    nobf: jnp.ndarray  # [L, 16] 1.0 if NOT backface-culled
-    tri_id: jnp.ndarray  # [L, 16] i32 original triangle id (-1 pad)
+    n: jnp.ndarray  # [L, S, 3] face normals (0 for pad)
+    nv0: jnp.ndarray  # [L, S] n . v0
+    m: jnp.ndarray  # [L, S, 9] edge normals (n x e_i), flattened
+    c: jnp.ndarray  # [L, S, 3] m_i . v_i  (pad rows get c=1 -> always fail)
+    nobf: jnp.ndarray  # [L, S] 1.0 if NOT backface-culled
+    tri_id: jnp.ndarray  # [L, S] i32 original triangle id (-1 pad)
     cl_min: jnp.ndarray  # [L, 3] cluster AABB lower
     cl_max: jnp.ndarray  # [L, 3] cluster AABB upper
 
@@ -150,34 +126,29 @@ def morton_order(centroids: jnp.ndarray) -> jnp.ndarray:
     return jnp.argsort(code).astype(jnp.int32)
 
 
-def build_cluster_tables(scene, cluster_size: int | None = None) -> ClusterTables:
-    """Morton-cluster the scene's triangles and precompute test constants.
-
-    ``cluster_size`` defaults to the module-level CLUSTER_SIZE at call time
-    (tunable).
-    """
-    cluster_size = cluster_size or CLUSTER_SIZE
+def build_cluster_tables(scene) -> ClusterTables:
+    """Morton-cluster the scene's triangles and precompute test constants."""
     vertices = jax.lax.stop_gradient(scene.vertices)
     tvi = scene.tri_vidx
     backface = scene.mat_backface[scene.tri_material]
     T = tvi.shape[0]
-    L = -(-T // cluster_size)
+    L = -(-T // CLUSTER_SIZE)
 
     pts = vertices[tvi]  # [T, 3, 3]
     centroids = pts.mean(axis=1)
     order = morton_order(centroids)
 
-    pad = L * cluster_size - T
+    pad = L * CLUSTER_SIZE - T
     order_padded = jnp.concatenate(
         [order, jnp.full((pad,), -1, jnp.int32)]
     ) if pad else order
-    cl = order_padded.reshape(L, cluster_size)  # [L, 16] tri ids, -1 pad
+    cl = order_padded.reshape(L, CLUSTER_SIZE)  # [L, S] tri ids, -1 pad
 
     padm = cl < 0
     ids = jnp.maximum(cl, 0)
 
     i0, i1, i2 = tvi[ids, 0], tvi[ids, 1], tvi[ids, 2]
-    v0, v1, v2 = vertices[i0], vertices[i1], vertices[i2]  # [L, 16, 3]
+    v0, v1, v2 = vertices[i0], vertices[i1], vertices[i2]  # [L, S, 3]
     n = vecmath.safe_normalize(vecmath.cross(v1 - v0, v2 - v0))
     e0, e1, e2 = v1 - v0, v2 - v1, v0 - v2
     m0, m1, m2 = vecmath.cross(n, e0), vecmath.cross(n, e1), vecmath.cross(n, e2)
@@ -185,7 +156,7 @@ def build_cluster_tables(scene, cluster_size: int | None = None) -> ClusterTable
         [vecmath.dot(m0, v0), vecmath.dot(m1, v1), vecmath.dot(m2, v2)],
         axis=-1,
     )
-    m = jnp.concatenate([m0, m1, m2], axis=-1)  # [L, 16, 9]
+    m = jnp.concatenate([m0, m1, m2], axis=-1)  # [L, S, 9]
 
     padf = padm[..., None].astype(jnp.float32)
     n = n * (1.0 - padf)
@@ -196,7 +167,7 @@ def build_cluster_tables(scene, cluster_size: int | None = None) -> ClusterTable
     # the first real member so they never widen the box.
     first = jnp.broadcast_to(ids[:, :1], ids.shape)
     safe_ids = jnp.where(padm, first, ids)
-    cpts = vertices[tvi[safe_ids]]  # [L, 16, 3, 3]
+    cpts = vertices[tvi[safe_ids]]  # [L, S, 3, 3]
     cl_min = cpts.min(axis=(1, 2))
     cl_max = cpts.max(axis=(1, 2))
 
@@ -212,27 +183,30 @@ def build_cluster_tables(scene, cluster_size: int | None = None) -> ClusterTable
     )
 
 
-def emit_rows_table(scene, tables: ClusterTables) -> jnp.ndarray:
-    """Per-slot packed attribute rows for the row-emitting trace kernel.
+def cluster_records(tables: ClusterTables) -> jnp.ndarray:
+    """Fuse the per-slot test constants into one cluster-major record.
 
-    Returns [L, S, K+1] f32: the shader's packed rows (build_packed order:
-    v0|v1|v2 [+normals] [+uvs]) for each cluster member, plus a final
-    SLOT-INDEX row.  Slot index == Morton rank of the triangle (clusters
-    are built from the Morton order, pads sit at the tail), so the emitted
-    last row directly provides the banded-segsum ranked ids.
-
-    VMEM note: the minor K+1 dim pads to 128 lanes, so this table costs
-    L * S * 128 * 4 bytes (~8 KB per cluster) — the auto backend only
-    enables emit when it fits the budget (renderer._emit_rows_ok).
+    Returns [L, FIELDS, S] f32: rows n(3) | n.v0 | m(9) | c(3) | nobf |
+    tri_id.  Field-major within a cluster, so every field is one
+    contiguous S-wide vector load and the whole cluster one contiguous
+    FIELDS * S * 4-byte span.  Triangle ids ride as f32 (exact below
+    2^24 = 16.7M triangles; padding slots carry -1).
     """
-    from crt_tpu.ops.shade import build_packed
-
-    packed = jax.lax.stop_gradient(build_packed(scene))  # [K, T]
     L, S = tables.tri_id.shape
-    ids = jnp.maximum(tables.tri_id, 0)
-    rows = packed.T[ids]  # [L, S, K]
-    slot = jnp.arange(L * S, dtype=jnp.float32).reshape(L, S)[..., None]
-    return jnp.concatenate([rows, slot], axis=-1)
+    if L * S >= 2**24:
+        raise ValueError(f"{L * S} triangle slots exceed the f32 id range")
+    rows = jnp.concatenate(
+        [
+            tables.n,
+            tables.nv0[..., None],
+            tables.m,
+            tables.c,
+            tables.nobf[..., None],
+            tables.tri_id.astype(jnp.float32)[..., None],
+        ],
+        axis=-1,
+    )  # [L, S, FIELDS]
+    return jnp.swapaxes(rows, 1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +257,7 @@ def _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_cap=None,
         # interval division needs all four corners — the one-corner
         # formulas silently INVERT for negative-t boxes (a per-axis
         # [entry, exit] of [-0.93, -4.44] culled a truly reachable glass
-        # cluster on 11-01-scene8; round-5 forensic).
+        # cluster on 11-01-scene8).
         definite = pos | neg
         safe_lo = jnp.where(definite, d_lo, 1.0)
         safe_hi = jnp.where(definite, d_hi, 1.0)
@@ -397,9 +371,30 @@ def _apex_wedge_mask(apex, w_lo, w_hi, cl_min, cl_max, slack):
     return ok
 
 
+def compact_mask(mask: jnp.ndarray):
+    """[tiles, L] bool -> (cluster_list [tiles, L] i32, counts [tiles] i32).
+
+    Admitted cluster ids in ascending (Morton) order at the front of each
+    row; entries past ``counts`` are unspecified.  Linear work: a row
+    cumsum gives each admitted cluster its slot, one scatter places it.
+    """
+    tiles, L = mask.shape
+    pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32)
+    counts = pos[:, -1]
+    slot = jnp.where(mask, pos - 1, L)  # unadmitted -> out of range, dropped
+    rows = jnp.broadcast_to(jnp.arange(tiles, dtype=jnp.int32)[:, None],
+                            mask.shape)
+    ids = jnp.broadcast_to(jnp.arange(L, dtype=jnp.int32)[None, :],
+                           mask.shape)
+    cluster_list = jnp.zeros((tiles, L), jnp.int32).at[rows, slot].set(
+        ids, mode="drop", unique_indices=True
+    )
+    return cluster_list, counts
+
+
+@jax.named_scope("phase_a_bin")
 def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int | None = None,
-             active=None, apex=None, apex_slack: float = 0.0,
-             near_order: bool = False):
+             active=None):
     """Phase A.  origins/dirs: [R, 3] with R % tile_rays == 0.
 
     ``active`` ([R] bool or None) restricts the frustum to lanes whose hit
@@ -409,119 +404,52 @@ def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int | None = None,
     (garbage) results from whatever clusters the active lanes pull in; the
     shading masks discard them.
 
-    ``apex`` ([tiles, 3] or None): point-light shadow-wavefront mode.  Every
-    shadow ray of a tile passes (within the bias) through its light point P,
-    so the tile's reachable set is the shaft hull(origin box, P).  Tested
-    from the LIGHT side — origin = P exactly, direction interval = (origin
-    box ± apex_slack) − P, t ∈ [0, 1] — the interval slice at t is t·W, an
-    exact scaling of the origin box, so unlike the origin-side o-box × d-box
-    product this IS the shaft (up to per-axis slab conservatism).  Cluster
-    boxes are inflated by 2·apex_slack to keep bias-offset hits conservative.
-    Direction intervals are never reduced in this mode (they are unused).
-    Occlusion-exact: any hit with t² ≤ light_dist² lies within the bias of
-    the ideal segment [hit point, P] ⊂ the shaft.  Measured on 14-01: −35 %
-    (tile × cluster) kernel pairs vs the generic frustum, whose independent
-    o/d intervals overshoot the shaft badly.
-
-    Returns (cluster_list [tiles, 1, L] i32, counts [tiles] i32).
+    Returns (cluster_list [tiles, L] i32, counts [tiles] i32).
     """
     tile_rays = tile_rays or TILE_RAYS
     tiles = origins.shape[0] // tile_rays
-    need_d = apex is None
-
-    # Sub-frustum union (apex mode): bound each 1024-lane tile's reachable
-    # set by the UNION of SUB tighter shafts over its consecutive lane
-    # groups instead of one loose shaft — depth-spread tiles (floor +
-    # silhouette pixels) shrink their cluster lists while the KERNEL tiles
-    # stay 1024 lanes wide (unlike the measured-dead subtile-burst idea,
-    # which narrowed the VPU bursts).  Same reduction work, SUB x the
-    # (cheap) slab/cone mask tests; occlusion-exact.
-    sub = _SHADOW_SUBF if (apex is not None and _SHADOW_SUBF > 1
-                           and tile_rays % _SHADOW_SUBF == 0) else 1
-    o = origins.reshape(tiles * sub, tile_rays // sub, 3)
-    d = dirs.reshape(tiles * sub, tile_rays // sub, 3)
+    o = origins.reshape(tiles, tile_rays, 3)
+    d = dirs.reshape(tiles, tile_rays, 3)
 
     if active is None:
         o_lo, o_hi = o.min(axis=1), o.max(axis=1)
-        if need_d:
-            d_lo, d_hi = d.min(axis=1), d.max(axis=1)
+        d_lo, d_hi = d.min(axis=1), d.max(axis=1)
         tile_any = None
     else:
         INF = jnp.float32(3.4e38)
-        a = active.reshape(tiles * sub, tile_rays // sub, 1)
+        a = active.reshape(tiles, tile_rays, 1)
         o_lo = jnp.where(a, o, INF).min(axis=1)
         o_hi = jnp.where(a, o, -INF).max(axis=1)
-        if need_d:
-            d_lo = jnp.where(a, d, INF).min(axis=1)
-            d_hi = jnp.where(a, d, -INF).max(axis=1)
+        d_lo = jnp.where(a, d, INF).min(axis=1)
+        d_hi = jnp.where(a, d, -INF).max(axis=1)
         tile_any = jnp.any(a[..., 0], axis=1)
 
-    if apex is not None:
-        s = jnp.float32(apex_slack)
-        apex_sub = jnp.repeat(apex, sub, axis=0) if sub > 1 else apex
-        w_lo = (o_lo - s) - apex_sub
-        w_hi = (o_hi + s) - apex_sub
-        mask = _frustum_box_mask(
-            apex_sub, apex_sub, w_lo, w_hi,
-            tables.cl_min - 2.0 * s, tables.cl_max + 2.0 * s,
-            t_cap=jnp.float32(1.0 + 1e-4),
-        )  # [tiles * sub, L]
-        if _SHADOW_CONE:
-            mask = mask & _apex_cone_mask(
-                apex_sub, w_lo, w_hi, tables.cl_min, tables.cl_max, s
-            )
-        if _SHADOW_WEDGE:
-            mask = mask & _apex_wedge_mask(
-                apex_sub, w_lo, w_hi, tables.cl_min, tables.cl_max, s
-            )
-    else:
-        mask = _frustum_box_mask(
-            o_lo, o_hi, d_lo, d_hi, tables.cl_min, tables.cl_max
-        )  # [tiles, L]
+    mask = _frustum_box_mask(
+        o_lo, o_hi, d_lo, d_hi, tables.cl_min, tables.cl_max
+    )  # [tiles, L]
     if tile_any is not None:
         mask = mask & tile_any[:, None]
-    if sub > 1:
-        mask = mask.reshape(tiles, sub, -1).any(axis=1)
-
-    counts = jnp.sum(mask, axis=1).astype(jnp.int32)
-    if near_order:
-        # NEAR-ORIGIN-FIRST live ordering + per-position distance LOWER
-        # BOUNDS: lb[i] = min distance from the tile's (active) origin box
-        # to the i-th walked cluster's box — a valid lower bound on any
-        # hit t in that cluster (unit directions).  The kernel walks
-        # ascending lb and EXITS once every consuming lane's best_t <=
-        # the next lb (no remaining cluster can beat a committed hit) —
-        # exact under the first-walked-wins tie rule, because a skipped
-        # cluster could at best TIE.  Built for incoherent bounce/GI
-        # wavefronts whose direction frustums degenerate (origins stay
-        # coherent: they are the parent tile's hit points).
-        if sub > 1:
-            o_lo = o_lo.reshape(tiles, sub, 3).min(axis=1)
-            o_hi = o_hi.reshape(tiles, sub, 3).max(axis=1)
-        gap = jnp.maximum(
-            tables.cl_min[None] - o_hi[:, None], o_lo[:, None] - tables.cl_max[None]
-        )  # [tiles, L, 3]
-        gap = jnp.maximum(gap, 0.0)
-        dist = jnp.sqrt(jnp.sum(gap * gap, axis=-1))  # [tiles, L]
-        INFD = jnp.float32(3.4e38)
-        keyed = jnp.where(mask, dist, INFD)
-        order = jnp.argsort(keyed, axis=1).astype(jnp.int32)
-        lb = jnp.take_along_axis(keyed, order, axis=1)
-        return order[:, None, :], counts, lb[:, None, :]
-
-    order = jnp.argsort(~mask, axis=1, stable=True).astype(jnp.int32)
-    return order[:, None, :], counts
+    return compact_mask(mask)
 
 
+@jax.named_scope("phase_a_bin")
 def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
                     tile_rays: int | None = None, origin_slack: float = 0.0,
                     boxes=None, capped: bool = True, glass_boxes=None):
-    """Apex (shaft+cone+wedge) binning WITHOUT materializing the per-light
-    8M-lane wavefront: origin boxes reduce ONCE over the R pixel lanes
-    (union-of-lights active mask, the bin_shadow_rays precedent) and the
+    """Apex (shaft+cone+wedge) binning of a point-light shadow wavefront
+    WITHOUT materializing the per-light [Ll*R] lanes: origin boxes reduce
+    ONCE over the R pixel lanes (union-of-lights active mask) and the
     per-light shafts are built directly from those [tiles_per_light, 3]
-    boxes — the round-4 phase attribution measured ~3.5 ms of the 14-01
-    frame in the broadcast/retile of light_dir that only the kernel read.
+    boxes.
+
+    Every shadow ray of a tile passes (within the bias) through its light
+    point P, so the tile's reachable set is the shaft hull(origin box, P).
+    Tested from the LIGHT side — origin = P exactly, direction interval =
+    (origin box ± slack) − P, t ∈ [0, 1] — the interval slice at t is t·W,
+    an exact scaling of the origin box, so unlike an origin-side o-box ×
+    d-box product this IS the shaft (up to per-axis slab conservatism).
+    Cluster boxes are inflated by 2·slack to keep bias-offset hits
+    conservative.
 
     ``boxes`` ((cl_min, cl_max)) overrides the cluster AABBs — e.g. the
     refractive-member-only boxes of the glass-gate query (clusters with no
@@ -531,7 +459,7 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
     gate tests the whole ray, not the segment).
 
     shadow_o: [R, 3] biased per-pixel origins; active: [Ll, R].
-    Returns (cluster_list [Ll*tpl, 1, L], counts [Ll*tpl]).
+    Returns (cluster_list [Ll*tpl, L], counts [Ll*tpl]), light-major.
     """
     tile_rays = tile_rays or TILE_RAYS
     Ll = light_positions.shape[0]
@@ -566,14 +494,9 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
         t_cap=jnp.float32(1.0 + 1e-4),
         t_lo_clamp=capped,
     )
-    if capped and _SHADOW_CONE:
-        mask = mask & _apex_cone_mask(
-            apex, w_lo, w_hi, cl_min, cl_max, s
-        )
-    if capped and _SHADOW_WEDGE:
-        mask = mask & _apex_wedge_mask(
-            apex, w_lo, w_hi, cl_min, cl_max, s
-        )
+    if capped:
+        mask = mask & _apex_cone_mask(apex, w_lo, w_hi, cl_min, cl_max, s)
+        mask = mask & _apex_wedge_mask(apex, w_lo, w_hi, cl_min, cl_max, s)
     if glass_boxes is not None:
         # UNION with the uncapped glass-member reach (full-ray slab, the
         # merged one-pass router): clusters whose GLASS members a ray can
@@ -586,1676 +509,296 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
             t_cap=jnp.float32(1.0 + 1e-4), t_lo_clamp=False,
         )
     mask = mask & tile_any[:, None]
-
-    order = jnp.argsort(~mask, axis=1, stable=True).astype(jnp.int32)
-    counts = jnp.sum(mask, axis=1).astype(jnp.int32)
-    return order[:, None, :], counts
-
-
-def bin_shadow_rays(tables: ClusterTables, shadow_o, light_positions, active,
-                    tile_rays: int | None = None, origin_slack: float = 0.0):
-    """Phase A specialized for point-light shadow wavefronts.
-
-    The shadow wavefront for ``Ll`` lights is [Ll*R] lanes whose per-light
-    batches share the SAME per-pixel origins; the generic ``bin_rays`` would
-    reduce origin AND direction intervals over all Ll*R lanes (~5.7 ms of an
-    8.3 M-lane frame).  Here:
-
-      - origin intervals reduce ONCE over the R pixel lanes (union-of-lights
-        active mask) and are reused for every light;
-      - direction intervals need NO reduction at all: for a point light at P
-        the (unnormalized) direction P - point lies in the interval
-        P - [o_hi + slack, o_lo - slack] by interval arithmetic
-        (``origin_slack`` covers |shadow_o - point| = the shadow bias);
-      - the unnormalized parameterization puts the light exactly at t == 1,
-        so ``t_cap=1`` culls clusters whose earliest possible entry lies
-        beyond the light — exact for occlusion queries, because a hit with
-        t^2 <= light_dist^2 along the real (normalized) ray maps to
-        s = t/|P - point| <= 1 along the interval's direction scale.
-
-    shadow_o: [R, 3]; light_positions: [Ll, 3]; active: [Ll, R] bool.
-    Returns (cluster_list [Ll*tiles, 1, L], counts [Ll*tiles]) matching the
-    light-major flattening of the [Ll, R] wavefront.
-    """
-    tile_rays = tile_rays or TILE_RAYS
-    Ll = light_positions.shape[0]
-    R = shadow_o.shape[0]
-    tiles = R // tile_rays
-    INF = jnp.float32(3.4e38)
-
-    o = shadow_o.reshape(tiles, tile_rays, 3)
-    a_any = jnp.any(active, axis=0).reshape(tiles, tile_rays, 1)
-    o_lo = jnp.where(a_any, o, INF).min(axis=1)  # [tiles, 3]
-    o_hi = jnp.where(a_any, o, -INF).max(axis=1)
-    tile_any = jnp.any(
-        active.reshape(Ll, tiles, tile_rays), axis=2
-    )  # [Ll, tiles]
-
-    p = light_positions[:, None, :]  # [Ll, 1, 3]
-    d_lo = (p - (o_hi + origin_slack)[None]).reshape(-1, 3)  # [Ll*tiles, 3]
-    d_hi = (p - (o_lo - origin_slack)[None]).reshape(-1, 3)
-    o_lo_f = jnp.broadcast_to(o_lo[None], (Ll, tiles, 3)).reshape(-1, 3)
-    o_hi_f = jnp.broadcast_to(o_hi[None], (Ll, tiles, 3)).reshape(-1, 3)
-
-    mask = _frustum_box_mask(
-        o_lo_f, o_hi_f, d_lo, d_hi, tables.cl_min, tables.cl_max,
-        t_cap=1.0 + 1e-4,
-    )  # [Ll*tiles, L]
-    mask = mask & tile_any.reshape(-1)[:, None]
-
-    order = jnp.argsort(~mask, axis=1, stable=True).astype(jnp.int32)
-    counts = jnp.sum(mask, axis=1).astype(jnp.int32)
-    return order[:, None, :], counts
+    return compact_mask(mask)
 
 
 # ---------------------------------------------------------------------------
-# Phase B: the kernel
+# Phase B: the kernels
 # ---------------------------------------------------------------------------
 
-def _trace_kernel(
-    counts_ref,  # [tiles] SMEM (scalar prefetch)
-    cluster_list_ref,  # [1, 1, L] SMEM
-    o_ref,  # [1, 3, TR] VMEM
-    d_ref,  # [1, 3, TR] VMEM
-    n_ref,  # [L, 16, 3] VMEM
-    nv0_ref,  # [L, 16] VMEM
-    m_ref,  # [L, 16, 9] VMEM
-    c_ref,  # [L, 16, 3] VMEM
-    nobf_ref,  # [L, 16] VMEM
-    tid_ref,  # [L, 16] VMEM (i32)
-    *rest,  # [lb, act if early_exit] [rows] + best_t, best_tri [, best_rows]
-    emit_k: int = 0,
-    early_exit: bool = False,
-):
-    """Closest-hit cluster walk; with ``emit_k`` > 0 also emits the winning
-    triangle's [Kp] attribute row per lane (see emit_rows_table) — the
-    packed-row data the shader would otherwise re-fetch with a ~6 ms
-    2 M-index XLA gather.  Selection is an exact 0/1 masked sum, so emitted
-    values are bit-identical to ``packed[:, tri]``.  ``early_exit``: the
-    distance-ordered while-walk (see _trace_tile_body)."""
-    if early_exit:
-        lb_ref, act_ref, *rest = rest
-    else:
-        lb_ref = act_ref = None
-    if emit_k:
-        rows_ref, best_t_ref, best_tri_ref, best_rows_ref = rest
-    else:
-        best_t_ref, best_tri_ref = rest
-    tile = pl.program_id(0)
-    count = counts_ref[tile]
-    _trace_tile_body(
-        count, cluster_list_ref, o_ref, d_ref, n_ref, nv0_ref, m_ref, c_ref,
-        nobf_ref, tid_ref,
-        (rows_ref, best_t_ref, best_tri_ref, best_rows_ref) if emit_k
-        else (best_t_ref, best_tri_ref),
-        emit_k,
-        lb_ref=lb_ref, act_ref=act_ref,
-    )
+def _hit_test(rec_ref, cl, o, d):
+    """Plane + three-half-space test of cluster ``cl``'s S triangles
+    against a block of rays -> (t [S, B], valid [S, B]).
+
+    ``o``/``d``: per-axis [1, B] ray planes.  ``d`` need not be unit: the
+    occlusion kernel passes the unnormalized shadow direction w and reads
+    t on the segment scale (the light at t == 1).  ``valid`` excludes
+    near-parallel rays, back faces of culled materials, t < 0 and points
+    outside any edge half-space (crt_intersection.cpp:47-93)."""
+    def row(f):
+        return rec_ref[cl, f, :][:, None]  # [S, 1]
+
+    def dot3(f, v):
+        return row(f) * v[0] + row(f + 1) * v[1] + row(f + 2) * v[2]
+
+    nd = dot3(_N, d)
+    opd = row(_NV0) - dot3(_N, o)
+    not_parallel = jnp.abs(nd) >= PARALLEL_EPS
+    face_ok = (opd < 0.0) | (row(_NOBF) > 0.5)
+    t = opd / jnp.where(not_parallel, nd, 1.0)
+    valid = not_parallel & face_ok & (t >= 0.0)
+    for e in range(3):
+        f = _M + 3 * e
+        valid = valid & ((dot3(f, o) - row(_C + e)) + t * dot3(f, d) >= 0.0)
+    return t, valid
 
 
-def _trace_kernel_compact(
-    nlive_ref,  # [1] SMEM — number of live (count > 0) tiles
-    tile_ids_ref,  # [grid] SMEM — live-first tile permutation (see launcher)
-    counts_ref,  # [tiles] SMEM
-    cluster_list_ref,  # [1, 1, L] SMEM (block tile_ids[p])
-    o_ref,  # [1, 3, TR] VMEM (block tile_ids[p])
-    d_ref,
-    n_ref, nv0_ref, m_ref, c_ref, nobf_ref, tid_ref,
-    *rest,
-    emit_k: int = 0,
-    early_exit: bool = False,
-):
-    """Tile-compacted launch: grid step p handles tile tile_ids[p].  Steps
-    past nlive re-point at the LAST live tile's blocks (no new DMA — the
-    pipeline sees an unchanged block index) and skip all compute and
-    writes, so dead tiles cost only grid sequencing.  Unvisited tiles'
-    output blocks are garbage; the launcher masks them with counts > 0
-    (count == 0 tiles are misses by construction)."""
-    if early_exit:
-        lb_ref, act_ref, *rest = rest
-    else:
-        lb_ref = act_ref = None
-    if emit_k:
-        rows_ref, best_t_ref, best_tri_ref, best_rows_ref = rest
-    else:
-        best_t_ref, best_tri_ref = rest
+def _rays(ref, lanes):
+    return tuple(ref[k, lanes][None, :] for k in range(3))
+
+
+def _closest_kernel(counts_ref, list_ref, o_ref, d_ref, rec_ref,
+                    t_ref, tri_ref, *, block: int, sub: int):
+    """Closest hit for one block of rays: walk the tile's cluster list,
+    keep (best_t, best_tri) in registers.  Exact-t ties go to the smallest
+    triangle id (the reference's first-in-scene-order rule), so the result
+    does not depend on binning, walk order or how the scene is sharded."""
     p = pl.program_id(0)
+    tile = p // sub
+    lanes = pl.ds(p * block, block)
+    o = _rays(o_ref, lanes)
+    d = _rays(d_ref, lanes)
 
-    @pl.when(p < nlive_ref[0])
-    def _live():
-        count = counts_ref[tile_ids_ref[p]]
-        _trace_tile_body(
-            count, cluster_list_ref, o_ref, d_ref, n_ref, nv0_ref, m_ref,
-            c_ref, nobf_ref, tid_ref,
-            (rows_ref, best_t_ref, best_tri_ref, best_rows_ref) if emit_k
-            else (best_t_ref, best_tri_ref),
-            emit_k,
-            lb_ref=lb_ref, act_ref=act_ref,
+    def body(i, carry):
+        best_t, best_tri = carry
+        cl = list_ref[tile, i]
+        t, valid = _hit_test(rec_ref, cl, o, d)
+        t = jnp.where(valid, t, jnp.inf)
+        cl_best = jnp.min(t, axis=0)  # [B]
+        tid = rec_ref[cl, _TID, :].astype(jnp.int32)[:, None]
+        cl_tri = jnp.min(
+            jnp.where(t <= cl_best[None, :], tid, _BIG_ID), axis=0
         )
+        better = (cl_best < best_t) | ((cl_best == best_t)
+                                        & (cl_tri < best_tri))
+        return (jnp.where(better, cl_best, best_t),
+                jnp.where(better, cl_tri, best_tri))
+
+    init = (jnp.full((block,), jnp.inf, jnp.float32),
+            jnp.full((block,), -1, jnp.int32))
+    best_t, best_tri = jax.lax.fori_loop(0, counts_ref[tile], body, init)
+    t_ref[lanes] = best_t
+    tri_ref[lanes] = best_tri
 
 
-def _occl_kernel_compact(
-    nlive_ref,  # [1] SMEM
-    tile_ids_ref,  # [grid] SMEM live-first permutation
-    counts_ref,  # [tiles] SMEM
-    cluster_list_ref,  # [1, 1, L] SMEM (block tile_ids[p])
-    o_ref,  # [1, 3, TR] VMEM
-    d_ref,
-    r2_ref,  # [1, 1, TR] VMEM squared max distance
-    *rest,  # [act_ref if early_exit], n, nv0, m, c, nobf, occ out
-    early_exit: bool = False,
-):
-    """Occlusion-specialized compact trace: OR-accumulates ``any hit with
-    t^2 <= r2`` per lane instead of tracking (best_t, best_tri) — exactly
-    the boolean the shadow path derives from the closest hit (any valid t
-    with t^2 <= r2 exists iff min_t^2 <= r2), with no tie-break id
-    reduction, no tid table DMA, and a single [1, TR] carry plane.
-
-    ``early_exit``: lanes outside the consume mask (``act_ref``) seed as
-    blocked and the cluster walk becomes a while_loop that stops once the
-    whole tile is blocked — paired with near-origin-first cluster order
-    (bin_rays near_order) so dense blockers are found in the first steps."""
-    if early_exit:
-        act_ref, *rest = rest
-    else:
-        act_ref = None
-    n_ref, nv0_ref, m_ref, c_ref, nobf_ref, occ_ref = rest
-    p = pl.program_id(0)
-
-    @pl.when(p < nlive_ref[0])
-    def _live():
-        count = counts_ref[tile_ids_ref[p]]
-        ox, oy, oz = o_ref[0, 0:1, :], o_ref[0, 1:2, :], o_ref[0, 2:3, :]
-        dx, dy, dz = d_ref[0, 0:1, :], d_ref[0, 1:2, :], d_ref[0, 2:3, :]
-        r2 = r2_ref[0, 0:1, :]
-
-        def one_cluster(cl, blocked):
-            n = n_ref[cl]
-            nd = n[:, 0:1] * dx + n[:, 1:2] * dy + n[:, 2:3] * dz
-            no = n[:, 0:1] * ox + n[:, 1:2] * oy + n[:, 2:3] * oz
-            opd = nv0_ref[cl][:, None] - no
-            not_parallel = jnp.abs(nd) >= PARALLEL_EPS
-            face_ok = (opd < 0.0) | (nobf_ref[cl][:, None] > 0.5)
-            t = opd / jnp.where(not_parallel, nd, 1.0)
-            valid = not_parallel & face_ok & (t >= 0.0) & (t * t <= r2)
-            m = m_ref[cl]
-            c = c_ref[cl]
-            for e in range(3):
-                md = (
-                    m[:, 3 * e + 0 : 3 * e + 1] * dx
-                    + m[:, 3 * e + 1 : 3 * e + 2] * dy
-                    + m[:, 3 * e + 2 : 3 * e + 3] * dz
-                )
-                mo = (
-                    m[:, 3 * e + 0 : 3 * e + 1] * ox
-                    + m[:, 3 * e + 1 : 3 * e + 2] * oy
-                    + m[:, 3 * e + 2 : 3 * e + 3] * oz
-                )
-                valid = valid & ((mo - c[:, e : e + 1]) + t * md >= 0.0)
-            # i32 carry: Mosaic cannot legalize a bool-vector scf.for carry
-            return blocked | jnp.any(
-                valid, axis=0, keepdims=True
-            ).astype(jnp.int32)
-
-        def body(i, blocked):
-            base = i * CLUSTER_UNROLL
-            for k in range(CLUSTER_UNROLL):
-                idx = jnp.minimum(base + k, count - 1)
-                blocked = one_cluster(cluster_list_ref[0, 0, idx], blocked)
-            return blocked
-
-        TR = o_ref.shape[2]
-        steps = (count + CLUSTER_UNROLL - 1) // CLUSTER_UNROLL
-        if act_ref is None:
-            blocked = jax.lax.fori_loop(
-                0, steps, body, jnp.zeros((1, TR), jnp.int32)
-            )
-        else:
-            # seed unconsumed lanes blocked so they never hold the exit open
-            init = (act_ref[0, 0:1, :] <= 0.5).astype(jnp.int32)
-
-            def w_cond(state):
-                i, blocked = state
-                return (i < steps) & jnp.logical_not(jnp.all(blocked > 0))
-
-            def w_body(state):
-                i, blocked = state
-                return (i + 1, body(i, blocked))
-
-            _, blocked = jax.lax.while_loop(
-                w_cond, w_body, (jnp.int32(0), init)
-            )
-        occ_ref[0, 0, :] = blocked[0]
-
-
-def _occl_kernel_compact_w(
-    nlive_ref,  # [1] SMEM
-    tile_ids_ref,  # [grid] SMEM live-first permutation
-    counts_ref,  # [Ll*tpl] SMEM
-    cluster_list_ref,  # [1, 1, L] SMEM (block tile_ids[p])
-    apex_ref,  # [1, 1, 3] SMEM — the tile's light position
-    o_ref,  # [1, 3, TR] VMEM biased origins (tile_mod-wrapped)
-    p_ref,  # [1, 3, TR] VMEM UNBIASED hit points (tile_mod-wrapped)
-    *rest,  # [boxes if lane_gate][gm if masked/glass], n..nobf, outs
-    capped: bool = True,
-    member_masked: bool = False,
-    glass_flag: bool = False,
-    lane_gate: bool = False,
-):
-    """Occlusion with IN-KERNEL shadow directions.
+def _occl_kernel(counts_ref, list_ref, lp_ref, o_ref, p_ref, rec_ref, *rest,
+                 block: int, sub: int, blocks_per_light: int, capped: bool,
+                 member_masked: bool, glass_flag: bool):
+    """Occlusion with IN-KERNEL shadow directions for one block of a
+    light-major [Ll*R] shadow wavefront.
 
     The shadow ray from pixel point P toward light Lp is o_b + t·d̂ with
     d̂ ∝ w = Lp − P; parameterized by s along the UNNORMALIZED w the ray
     is identical and the reference's ``t² ≤ |w|²`` occlusion condition is
     exactly ``s ≤ 1`` (|w| cancels — crt_renderer.cpp:92).  So the kernel
-    needs only the light position (3 SMEM scalars/tile) and P — the
-    8M-lane normalized-direction tensor the host built and retiled for
-    the d-consuming kernel (~3.5 ms/frame, round-4 attribution) is never
-    materialized.  The parallel-ray epsilon tests n·w instead of n·d̂
-    (stricter by |w|); a grazing triangle the reference drops as parallel
-    can here register a blocker — both readings are defensible and the
-    golden sweep decides (unchanged, see docs/PERFORMANCE.md round 4).
+    needs only the light position and P; no [Ll*R, 3] direction tensor is
+    built.  The parallel-ray epsilon tests n·w instead of n·d̂ (stricter
+    by |w|); a grazing triangle the reference drops as parallel can here
+    register a blocker (tests/test_occlusion.py pins this reading).
 
-    ``capped=False`` drops the ``s ≤ 1`` condition: any-hit along the
-    UNBOUNDED ray — the transmissive-march split's glass-intersection
-    gate (a refractive surface anywhere on the ray can bend it, even
-    beyond the light: crt_renderer.cpp:29-44 walks uncapped).
-    ``member_masked`` adds a per-slot [L, S] f32 multiplier restricting
-    hits to a triangle subset (the refractive members) without
-    rebuilding tables.  ``glass_flag`` instead keeps ALL members in the
-    occlusion reduction and emits a SECOND output: "some refractive
-    member (per the same [L, S] mask) hits within the segment" — the
+    ``capped=False`` drops ``s ≤ 1``: any-hit along the UNBOUNDED ray — the
+    transmissive-march split's glass gate (a refractive surface anywhere
+    on the ray can bend it, even beyond the light: crt_renderer.cpp:29-44
+    walks uncapped).  ``member_masked`` restricts hits to the slots an
+    [L, S] f32 mask selects (the refractive members).  ``glass_flag``
+    keeps ALL members in the occlusion output and writes a SECOND output:
+    "some masked member hits anywhere on the unbounded ray" — the
     one-pass march-split router (see shade._occlusion_masks).
     """
-    if lane_gate:
-        blo_ref, bhi_ref, *rest = rest  # [L, 3] SMEM inflated cluster boxes
     if member_masked or glass_flag:
         gm_ref, *rest = rest
-    if glass_flag:
-        n_ref, nv0_ref, m_ref, c_ref, nobf_ref, occ_ref, gls_ref = rest
-    else:
-        n_ref, nv0_ref, m_ref, c_ref, nobf_ref, occ_ref = rest
-    p = pl.program_id(0)
+    occ_ref = rest[0]
+    q = pl.program_id(0)
+    tile = q // sub
+    light = q // blocks_per_light
+    lanes = pl.ds((q % blocks_per_light) * block, block)
+    o = _rays(o_ref, lanes)
+    pt = _rays(p_ref, lanes)
+    w = tuple(lp_ref[light, k] - pt[k] for k in range(3))
 
-    @pl.when(p < nlive_ref[0])
-    def _live():
-        count = counts_ref[tile_ids_ref[p]]
-        ox, oy, oz = o_ref[0, 0:1, :], o_ref[0, 1:2, :], o_ref[0, 2:3, :]
-        wx = apex_ref[0, 0, 0] - p_ref[0, 0:1, :]
-        wy = apex_ref[0, 0, 1] - p_ref[0, 1:2, :]
-        wz = apex_ref[0, 0, 2] - p_ref[0, 2:3, :]
-
-        if lane_gate:
-            # Per-lane segment-box slab precomputation (the in-kernel
-            # analog of the stream path's lane-exact pair admission —
-            # round-5 measured the interval hulls over-admitting 2.33x):
-            # reciprocal of each lane's w once; near-zero components take
-            # the select path in _gate below (0*inf NaNs would silently
-            # DROP clusters — conservative wrongness is not allowed).
-            TINY = jnp.float32(1e-12)
-            sx = jnp.abs(wx) < TINY
-            sy = jnp.abs(wy) < TINY
-            sz = jnp.abs(wz) < TINY
-            iwx = jnp.where(sx, 0.0, 1.0 / jnp.where(sx, 1.0, wx))
-            iwy = jnp.where(sy, 0.0, 1.0 / jnp.where(sy, 1.0, wy))
-            iwz = jnp.where(sz, 0.0, 1.0 / jnp.where(sz, 1.0, wz))
-            GINF = jnp.float32(3.4e38)
-
-            def _gate(cl):
-                """Scalar bool: can ANY lane's s in [0, 1+eps] segment
-                hit cluster ``cl``'s (pre-inflated) box?"""
-                ent = jnp.full_like(wx, -GINF)
-                ext = jnp.full_like(wx, GINF)
-                for o_c, iw, sm, ax in ((ox, iwx, sx, 0), (oy, iwy, sy, 1),
-                                        (oz, iwz, sz, 2)):
-                    lo = blo_ref[cl, ax]
-                    hi = bhi_ref[cl, ax]
-                    t1 = (lo - o_c) * iw
-                    t2 = (hi - o_c) * iw
-                    inside = (o_c >= lo) & (o_c <= hi)
-                    tlo = jnp.where(sm, jnp.where(inside, -GINF, GINF),
-                                    jnp.minimum(t1, t2))
-                    thi = jnp.where(sm, jnp.where(inside, GINF, -GINF),
-                                    jnp.maximum(t1, t2))
-                    ent = jnp.maximum(ent, tlo)
-                    ext = jnp.minimum(ext, thi)
-                ok = (ent <= ext) & (ext >= 0.0)
-                if capped:
-                    ok = ok & (ent <= 1.0001)
-                return jnp.any(ok)
-
-        def one_cluster(cl, carry):
-            blocked = carry[0] if glass_flag else carry
-            n = n_ref[cl]
-            nd = n[:, 0:1] * wx + n[:, 1:2] * wy + n[:, 2:3] * wz
-            no = n[:, 0:1] * ox + n[:, 1:2] * oy + n[:, 2:3] * oz
-            opd = nv0_ref[cl][:, None] - no
-            not_parallel = jnp.abs(nd) >= PARALLEL_EPS
-            face_ok = (opd < 0.0) | (nobf_ref[cl][:, None] > 0.5)
-            t = opd / jnp.where(not_parallel, nd, 1.0)
-            base = not_parallel & face_ok & (t >= 0.0)
-            if member_masked:
-                base = base & (gm_ref[cl][:, None] > 0.5)
-            m = m_ref[cl]
-            c = c_ref[cl]
-            for e in range(3):
-                md = (
-                    m[:, 3 * e + 0 : 3 * e + 1] * wx
-                    + m[:, 3 * e + 1 : 3 * e + 2] * wy
-                    + m[:, 3 * e + 2 : 3 * e + 3] * wz
-                )
-                mo = (
-                    m[:, 3 * e + 0 : 3 * e + 1] * ox
-                    + m[:, 3 * e + 1 : 3 * e + 2] * oy
-                    + m[:, 3 * e + 2 : 3 * e + 3] * oz
-                )
-                base = base & ((mo - c[:, e : e + 1]) + t * md >= 0.0)
-            valid = base & (t <= 1.0) if capped else base
-            new_blocked = blocked | jnp.any(
-                valid, axis=0, keepdims=True
-            ).astype(jnp.int32)
-            if not glass_flag:
-                return new_blocked
-            # glass accumulator is UNCAPPED: a refractive hit anywhere on
-            # the ray (even beyond the light) routes the lane to the
-            # faithful bend-walk (crt_renderer.cpp:29-44 walks unbounded)
-            glass = carry[1] | jnp.any(
-                base & (gm_ref[cl][:, None] > 0.5), axis=0, keepdims=True
-            ).astype(jnp.int32)
-            return (new_blocked, glass)
-
-        def body(i, carry):
-            base = i * CLUSTER_UNROLL
-            for k in range(CLUSTER_UNROLL):
-                idx = jnp.minimum(base + k, count - 1)
-                cl = cluster_list_ref[0, 0, idx]
-                if lane_gate:
-                    # skip the 16-member walk when no lane's segment can
-                    # reach the (inflated) box — ~5 % gate cost per
-                    # cluster for the measured 2.33x hull over-admission
-                    carry = jax.lax.cond(
-                        _gate(cl),
-                        functools.partial(one_cluster, cl),
-                        lambda c: c,
-                        carry,
-                    )
-                else:
-                    carry = one_cluster(cl, carry)
-            return carry
-
-        TR = o_ref.shape[2]
-        steps = (count + CLUSTER_UNROLL - 1) // CLUSTER_UNROLL
-        init = jnp.zeros((1, TR), jnp.int32)
-        if glass_flag:
-            blocked, glass = jax.lax.fori_loop(
-                0, steps, body, (init, init)
-            )
-            occ_ref[0, 0, :] = blocked[0]
-            gls_ref[0, 0, :] = glass[0]
-        else:
-            blocked = jax.lax.fori_loop(0, steps, body, init)
-            occ_ref[0, 0, :] = blocked[0]
-
-
-def _occluded_binned_compact_w(
-    tables: ClusterTables,
-    o_t: jnp.ndarray,  # [tpl, 3, TR] biased origins (light-invariant)
-    p_t: jnp.ndarray,  # [tpl, 3, TR] unbiased hit points
-    apex: jnp.ndarray,  # [Ll*tpl, 1, 3] per-tile light position
-    cluster_list: jnp.ndarray,  # [Ll*tpl, 1, L]
-    counts: jnp.ndarray,  # [Ll*tpl]
-    tile_rays: int,
-    interpret: bool,
-    capped: bool = True,
-    member_mask: jnp.ndarray | None = None,  # [L, S] f32 triangle subset
-    glass_flag: bool = False,
-    lane_boxes=None,  # ([L, 3] lo, [L, 3] hi) pre-inflated -> in-kernel gate
-):
-    """Live-tile-compacted w-form occlusion -> blocked [Ll*tpl,1,TR] bool.
-
-    ``glass_flag``: keep all members in the occlusion reduction and ALSO
-    return a second [Ll*tpl,1,TR] bool — "some member_mask member hits
-    within the segment" (the one-pass transmissive-march router)."""
-    tiles = counts.shape[0]
-    tpl = o_t.shape[0]
-    L = tables.n.shape[0]
-
-    live = counts > 0
-    n_live = jnp.sum(live, dtype=jnp.int32)
-    order = jnp.argsort(~live, stable=True).astype(jnp.int32)
-    step = jnp.arange(tiles, dtype=jnp.int32)
-    tile_ids = order[jnp.minimum(step, jnp.maximum(n_live - 1, 0))]
-    nlive_arr = n_live.reshape(1)
-    n_out = 2 if glass_flag else 1
-
-    def launch(cap):
-        in_specs = [
-            pl.BlockSpec((1, 1, L), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, 3), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3, tile_rays),
-                         lambda i, nl, ts, c: (ts[i] % tpl, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 3, tile_rays),
-                         lambda i, nl, ts, c: (ts[i] % tpl, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-        operands = [
-            nlive_arr, tile_ids[:cap], counts, cluster_list, apex, o_t, p_t,
-        ]
-        if lane_boxes is not None:
-            for b in lane_boxes:
-                in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-                operands.append(b)
-        if member_mask is not None:
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))  # gm
-            operands.append(member_mask)
-        in_specs += [
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-        ]
-        operands += [tables.n, tables.nv0, tables.m, tables.c, tables.nobf]
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(cap,),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((1, 1, tile_rays),
-                             lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.VMEM),
-            ] * n_out,
-        )
-        outs = pl.pallas_call(
-            functools.partial(
-                _occl_kernel_compact_w, capped=capped,
-                member_masked=member_mask is not None and not glass_flag,
-                glass_flag=glass_flag, lane_gate=lane_boxes is not None,
-            ),
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.int32,
-                                     vma=_out_vma(*operands))
-            ] * n_out,
-            interpret=interpret,
-        )(*operands)
-        return jnp.stack(outs) if glass_flag else outs[0]
-
-    caps = sorted({max(1, tiles >> s) for s in (3, 2, 1, 0)})
-    if len(caps) == 1:
-        occ = launch(caps[0])
-    else:
-        tier = jnp.searchsorted(
-            jnp.asarray(caps, jnp.int32), n_live, side="left"
-        )
-        tier = jnp.minimum(tier, len(caps) - 1)
-        occ = jax.lax.switch(
-            tier, [functools.partial(launch, c) for c in caps]
-        )
-    if glass_flag:
-        lm = live[:, None, None]
-        return (occ[0] > 0) & lm, (occ[1] > 0) & lm
-    return (occ > 0) & live[:, None, None]
-
-
-def _occluded_binned_compact(
-    tables: ClusterTables,
-    o_t: jnp.ndarray,  # [tiles, 3, TR] (or [tile_mod, 3, TR])
-    d_t: jnp.ndarray,
-    r2_t: jnp.ndarray,  # [tiles, 1, TR]
-    cluster_list: jnp.ndarray,  # [tiles, 1, L]
-    counts: jnp.ndarray,  # [tiles]
-    tile_rays: int,
-    interpret: bool,
-    tile_mod: int | None = None,
-    act_t: jnp.ndarray | None = None,  # [tiles, 1, TR] f32 -> all-blocked exit
-) -> jnp.ndarray:
-    """Live-tile-compacted occlusion launch -> blocked [tiles, 1, TR] bool.
-
-    Same tiering as _closest_hit_binned_compact; unvisited tiles are
-    unoccluded by construction (count == 0 -> no cluster can block)."""
-    tiles = counts.shape[0]  # o_t may be tile_mod-shrunk
-    L = tables.n.shape[0]
-    early_exit = act_t is not None
-
-    live = counts > 0
-    n_live = jnp.sum(live, dtype=jnp.int32)
-    order = jnp.argsort(~live, stable=True).astype(jnp.int32)
-    step = jnp.arange(tiles, dtype=jnp.int32)
-    tile_ids = order[jnp.minimum(step, jnp.maximum(n_live - 1, 0))]
-    nlive_arr = n_live.reshape(1)
-    if tile_mod:
-        o_map = lambda i, nl, ts, c: (ts[i] % tile_mod, 0, 0)
-    else:
-        o_map = lambda i, nl, ts, c: (ts[i], 0, 0)
-
-    def launch(cap):
-        in_specs = [
-            pl.BlockSpec((1, 1, L), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3, tile_rays), o_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 3, tile_rays),
-                         lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tile_rays),
-                         lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-        operands = [
-            nlive_arr, tile_ids[:cap], counts, cluster_list, o_t, d_t,
-            r2_t,
-        ]
-        if early_exit:
-            in_specs.append(
-                pl.BlockSpec((1, 1, tile_rays),
-                             lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.VMEM)
-            )
-            operands.append(act_t)
-        in_specs += [
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-        ]
-        operands += [tables.n, tables.nv0, tables.m, tables.c, tables.nobf]
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(cap,),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((1, 1, tile_rays),
-                             lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-        )
-        (occ,) = pl.pallas_call(
-            functools.partial(_occl_kernel_compact, early_exit=early_exit),
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.int32,
-                                     vma=_out_vma(*operands))
-            ],
-            interpret=interpret,
-        )(*operands)
-        return occ
-
-    caps = sorted({max(1, tiles >> s) for s in (3, 2, 1, 0)})
-    if len(caps) == 1:
-        occ = launch(caps[0])
-    else:
-        tier = jnp.searchsorted(
-            jnp.asarray(caps, jnp.int32), n_live, side="left"
-        )
-        tier = jnp.minimum(tier, len(caps) - 1)
-        occ = jax.lax.switch(
-            tier, [functools.partial(launch, c) for c in caps]
-        )
-    return (occ > 0) & live[:, None, None]
-
-
-def _trace_tile_body(count, cluster_list_ref, o_ref, d_ref, n_ref, nv0_ref,
-                     m_ref, c_ref, nobf_ref, tid_ref, rest, emit_k,
-                     lane_lo=0, lane_hi=None, cl_row=0,
-                     lb_ref=None, act_ref=None):
-    """``lane_lo/lane_hi`` select a static lane window (tile-merged launches
-    pack several tiles' lanes into one block); ``cl_row`` selects the
-    sub-tile's row of a merged cluster-list block.
-
-    ``lb_ref`` ([1, 1, L] SMEM f32, ascending): per-walk-position hit-t
-    lower bounds from near-origin-first binning (bin_rays near_order) —
-    the walk becomes a while_loop that EXITS once every lane is SETTLED:
-    ``min(best_t, bound) <= next lb``, where ``act_ref`` [1, 1, TR] f32
-    carries each lane's SETTLE BOUND — its conservative scene-box exit
-    distance (every real hit satisfies t <= exit, so once the remaining
-    clusters' lower bound passes it the lane's outcome — hit OR MISS —
-    is final; round-4's version had no bound, so open-scene miss lanes
-    held every tile's walk open: the measured +12 % GI regression),
-    or -1 for unconsumed lanes (settled immediately).  Exact under the
-    first-walked-wins tie rule."""
-    if emit_k:
-        rows_ref, best_t_ref, best_tri_ref, best_rows_ref = rest
-    else:
-        best_t_ref, best_tri_ref = rest
-
-    lo = lane_lo
-    hi = o_ref.shape[2] if lane_hi is None else lane_hi
-    ox, oy, oz = (o_ref[0, 0:1, lo:hi], o_ref[0, 1:2, lo:hi],
-                  o_ref[0, 2:3, lo:hi])  # [1, TR]
-    dx, dy, dz = (d_ref[0, 0:1, lo:hi], d_ref[0, 1:2, lo:hi],
-                  d_ref[0, 2:3, lo:hi])
-
-    INF = jnp.float32(jnp.inf)
-    BIGID = jnp.int32(2**30)
-
-    def one_cluster(cl, carry):
-        if emit_k:
-            best_t, best_tri, best_rows = carry
-        else:
-            best_t, best_tri = carry
-
-        n = n_ref[cl]  # [16, 3]
-        nd = n[:, 0:1] * dx + n[:, 1:2] * dy + n[:, 2:3] * dz  # [16, TR]
-        no = n[:, 0:1] * ox + n[:, 1:2] * oy + n[:, 2:3] * oz
-        opd = nv0_ref[cl][:, None] - no
-
-        not_parallel = jnp.abs(nd) >= PARALLEL_EPS
-        front = opd < 0.0
-        face_ok = front | (nobf_ref[cl][:, None] > 0.5)
-
-        t = opd / jnp.where(not_parallel, nd, 1.0)
-        valid = not_parallel & face_ok & (t >= 0.0)
-
-        m = m_ref[cl]  # [16, 9]
-        c = c_ref[cl]  # [16, 3]
-        for e in range(3):
-            md = (
-                m[:, 3 * e + 0 : 3 * e + 1] * dx
-                + m[:, 3 * e + 1 : 3 * e + 2] * dy
-                + m[:, 3 * e + 2 : 3 * e + 3] * dz
-            )
-            mo = (
-                m[:, 3 * e + 0 : 3 * e + 1] * ox
-                + m[:, 3 * e + 1 : 3 * e + 2] * oy
-                + m[:, 3 * e + 2 : 3 * e + 3] * oz
-            )
-            valid = valid & ((mo - c[:, e : e + 1]) + t * md >= 0.0)
-
-        t = jnp.where(valid, t, INF)
-        cl_best = jnp.min(t, axis=0, keepdims=True)  # [1, TR]
-
-        # Tie-break: smallest triangle id among t == cl_best (the
-        # reference's first-wins rule; id order == scene order).
-        tid = tid_ref[cl][:, None]  # [16, 1] i32
-        cand = jnp.where(t <= cl_best, tid, BIGID)
-        cl_tri = jnp.min(cand, axis=0, keepdims=True)  # [1, TR]
-
-        better = cl_best < best_t
-        new_t = jnp.where(better, cl_best, best_t)
-        new_tri = jnp.where(better, cl_tri, best_tri)
-        if not emit_k:
-            return (new_t, new_tri)
-
-        # Winner-member mask: exactly the member whose (t, id) won the
-        # cluster reduction (ids are unique within a cluster).  Masked sums
-        # with a 0/1 f32 mask are exact — one nonzero term per lane.
-        wmask = ((t <= cl_best) & (tid == cl_tri)).astype(jnp.float32)
-        rows = rows_ref[cl]  # [16, Kp]
-        sel = [
-            jnp.sum(wmask * rows[:, k : k + 1], axis=0, keepdims=True)
-            for k in range(emit_k)
-        ]  # emit_k x [1, TR]
-        rows_sel = jnp.concatenate(sel, axis=0)  # [Kp, TR]
-        new_rows = jnp.where(better, rows_sel, best_rows)
-        return (new_t, new_tri, new_rows)
-
-    # Unrolled cluster walk: each fori_loop iteration tests CLUSTER_UNROLL
-    # clusters — per-iteration loop bookkeeping (~1 us: dynamic slicing,
-    # carry plumbing) otherwise dominates the ~0.1 us of VPU work a single
-    # 16 x TR cluster burst costs.  Indices past ``count`` clamp to the
-    # last live cluster; re-testing an already-tested cluster is exactly
-    # idempotent under the (min-t, min-id tie-break) reduction, so no
-    # sentinel cluster is needed.
     def body(i, carry):
-        base = i * CLUSTER_UNROLL
-        for k in range(CLUSTER_UNROLL):
-            idx = jnp.minimum(base + k, count - 1)
-            carry = one_cluster(cluster_list_ref[cl_row, 0, idx], carry)
-        return carry
-
-    TR = hi - lo
-    init = (
-        jnp.full((1, TR), INF, jnp.float32),
-        jnp.full((1, TR), -1, jnp.int32),
-    )
-    if emit_k:
-        init = init + (jnp.zeros((emit_k, TR), jnp.float32),)
-    steps = (count + CLUSTER_UNROLL - 1) // CLUSTER_UNROLL
-    if lb_ref is None:
-        out = jax.lax.fori_loop(0, steps, body, init)
-    else:
-        if act_ref is not None:
-            bound = act_ref[0, 0:1, lo:hi]  # [1, TR] settle bounds
-        else:
-            bound = None
-
-        def w_cond(state):
-            i, best_t = state[0], state[1]
-            # count==0 tiles (non-compact launches run them) must not read
-            # SMEM index -1: clamp to 0 — the value is unused, (i < steps)
-            # is already false, but & does not short-circuit.
-            nb = lb_ref[cl_row, 0, jnp.minimum(i * CLUSTER_UNROLL,
-                                               jnp.maximum(count - 1, 0))]
-            eff = best_t if bound is None else jnp.minimum(best_t, bound)
-            settled = eff <= nb
-            return (i < steps) & jnp.logical_not(jnp.all(settled))
-
-        def w_body(state):
-            carry = body(state[0], state[1:])
-            return (state[0] + 1,) + tuple(carry)
-
-        out = jax.lax.while_loop(
-            w_cond, w_body, (jnp.int32(0),) + init
-        )[1:]
-    best_t_ref[0, 0, lo:hi] = out[0][0]
-    best_tri_ref[0, 0, lo:hi] = out[1][0]
-    if emit_k:
-        best_rows_ref[0, :, lo:hi] = out[2]
-
-
-def _occlusion_kernel(
-    counts_ref,  # [tiles] SMEM (scalar prefetch)
-    cluster_list_ref,  # [1, 1, L] SMEM
-    o_ref,  # [1, 3, TR] VMEM
-    d_ref,  # [1, 3, TR] VMEM
-    r2_ref,  # [1, 1, TR] VMEM  max hit distance squared (light distance^2)
-    init_occ_ref,  # [1, 1, TR] VMEM i32  1 = lane already resolved (inactive)
-    n_ref, nv0_ref, m_ref, c_ref, nobf_ref, tid_ref,  # cluster tables VMEM
-    occ_ref,  # [1, 1, TR] out i32
-):
-    """Any-hit occlusion: does some triangle block the ray before r2?
-
-    Same plane + half-space test as _trace_kernel but without closest-hit
-    bookkeeping, and the cluster walk EARLY-EXITS once every lane in the
-    tile is resolved — big shadowed regions stop after the first occluding
-    cluster instead of walking the whole list.
-    """
-    del tid_ref
-    tile = pl.program_id(0)
-    count = counts_ref[tile]
-
-    ox, oy, oz = o_ref[0, 0:1, :], o_ref[0, 1:2, :], o_ref[0, 2:3, :]
-    dx, dy, dz = d_ref[0, 0:1, :], d_ref[0, 1:2, :], d_ref[0, 2:3, :]
-    r2 = r2_ref[0, 0:1, :]  # [1, TR]
-
-    # NOTE: the loop carry is int32, not bool — Mosaic cannot legalize
-    # vector<i1> yields in scf.while.
-    def cond(carry):
-        i, occ = carry
-        return (i < count) & jnp.logical_not(jnp.all(occ > 0))
-
-    def body(carry):
-        i, occ = carry
-        cl = cluster_list_ref[0, 0, i]
-
-        n = n_ref[cl]
-        nd = n[:, 0:1] * dx + n[:, 1:2] * dy + n[:, 2:3] * dz
-        no = n[:, 0:1] * ox + n[:, 1:2] * oy + n[:, 2:3] * oz
-        opd = nv0_ref[cl][:, None] - no
-
-        not_parallel = jnp.abs(nd) >= PARALLEL_EPS
-        front = opd < 0.0
-        face_ok = front | (nobf_ref[cl][:, None] > 0.5)
-        t = opd / jnp.where(not_parallel, nd, 1.0)
-        valid = not_parallel & face_ok & (t >= 0.0)
-
-        m = m_ref[cl]
-        c = c_ref[cl]
-        for e in range(3):
-            md = (
-                m[:, 3 * e + 0 : 3 * e + 1] * dx
-                + m[:, 3 * e + 1 : 3 * e + 2] * dy
-                + m[:, 3 * e + 2 : 3 * e + 3] * dz
-            )
-            mo = (
-                m[:, 3 * e + 0 : 3 * e + 1] * ox
-                + m[:, 3 * e + 1 : 3 * e + 2] * oy
-                + m[:, 3 * e + 2 : 3 * e + 3] * oz
-            )
-            valid = valid & ((mo - c[:, e : e + 1]) + t * md >= 0.0)
-
-        blocked = jnp.any(valid & (t * t <= r2), axis=0, keepdims=True)
-        return i + 1, occ | blocked.astype(jnp.int32)
-
-    init_occ = init_occ_ref[0, 0:1, :]
-    _, occ = jax.lax.while_loop(cond, body, (jnp.int32(0), init_occ))
-    occ_ref[0, 0, :] = occ[0]
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rays", "interpret"))
-def occluded_pallas_flat(
-    tables: ClusterTables,
-    origins: jnp.ndarray,  # [R, 3], R % tile_rays == 0
-    dirs: jnp.ndarray,
-    r2: jnp.ndarray,  # [R] max distance squared
-    active=None,  # [R] bool or None
-    tile_rays: int = TILE_RAYS,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Any-hit occlusion query -> [R] bool (True = blocked before sqrt(r2)).
-
-    Inactive lanes return True (their value is never consumed; marking them
-    resolved lets whole tiles early-exit)."""
-    R = origins.shape[0]
-    tiles = R // tile_rays
-    L = tables.n.shape[0]
-
-    cluster_list, counts = bin_rays(tables, origins, dirs, tile_rays, active)
-
-    o_t = origins.reshape(tiles, tile_rays, 3).swapaxes(1, 2)
-    d_t = dirs.reshape(tiles, tile_rays, 3).swapaxes(1, 2)
-    r2_t = r2.reshape(tiles, 1, tile_rays)
-    if active is None:
-        init_occ = jnp.zeros((tiles, 1, tile_rays), jnp.int32)
-    else:
-        init_occ = (~active).reshape(tiles, 1, tile_rays).astype(jnp.int32)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((1, 1, L), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 3, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # tid
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-
-    (occ,) = pl.pallas_call(
-        _occlusion_kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct(
-            (tiles, 1, tile_rays), jnp.int32,
-            vma=_out_vma(counts, cluster_list, o_t, d_t, r2_t, init_occ,
-                         *tables),
-        )],
-        interpret=interpret,
-    )(
-        counts, cluster_list, o_t, d_t, r2_t, init_occ,
-        tables.n, tables.nv0, tables.m, tables.c, tables.nobf, tables.tri_id,
-    )
-    return occ.reshape(-1) > 0
-
-
-def _closest_hit_binned(
-    tables: ClusterTables,
-    o_t: jnp.ndarray,  # [tiles, 3, TR]
-    d_t: jnp.ndarray,  # [tiles, 3, TR]
-    cluster_list: jnp.ndarray,  # [tiles, 1, L] i32
-    counts: jnp.ndarray,  # [tiles] i32
-    tile_rays: int,
-    interpret: bool,
-    rows_table: jnp.ndarray | None = None,  # [L, S, Kp] (emit_rows_table)
-    lb: jnp.ndarray | None = None,  # [tiles, 1, L] ascending t lower bounds
-    act_t: jnp.ndarray | None = None,  # [tiles, 1, TR] f32 consume mask
-) -> tuple[jnp.ndarray, ...]:
-    """Run the trace kernel over pre-binned tiles -> (best_t, best_tri),
-    each [tiles, 1, TR].  With ``rows_table`` ([L, S, Kp], see
-    emit_rows_table) also returns best_rows [tiles, Kp, TR].  With ``lb``
-    (near-ordered binning) the walk early-exits per _trace_tile_body."""
-    tiles = o_t.shape[0]
-    L = tables.n.shape[0]
-    emit_k = 0 if rows_table is None else int(rows_table.shape[2])
-    early_exit = lb is not None
-
-    in_specs = [
-        pl.BlockSpec((1, 1, L), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, 3, tile_rays), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 3, tile_rays), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # tid
-    ]
-    out_specs = [
-        pl.BlockSpec((1, 1, tile_rays), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 1, tile_rays), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    vma = _out_vma(counts, cluster_list, o_t, d_t, *tables)
-    out_shape = [
-        jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.float32, vma=vma),
-        jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.int32, vma=vma),
-    ]
-    operands = [
-        counts,
-        cluster_list,
-        o_t,
-        d_t,
-        tables.n,
-        tables.nv0,
-        tables.m,
-        tables.c,
-        tables.nobf,
-        tables.tri_id,
-    ]
-    if early_exit:
-        in_specs.append(pl.BlockSpec((1, 1, L), lambda i, c: (i, 0, 0),
-                                     memory_space=pltpu.SMEM))
-        operands.append(lb)
-        in_specs.append(pl.BlockSpec((1, 1, tile_rays),
-                                     lambda i, c: (i, 0, 0),
-                                     memory_space=pltpu.VMEM))
-        # settle-bound plane (see _trace_tile_body): no bound -> a huge
-        # sentinel so only best_t can settle a lane
-        operands.append(act_t if act_t is not None
-                        else jnp.full((tiles, 1, tile_rays), 3.4e38,
-                                      jnp.float32))
-    if emit_k:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))  # rows
-        operands.append(rows_table)
-        # NOTE: a [emit_k, tiles, TR] rows layout would make the consumer's
-        # [Kp, R] reshape free (saving a ~1 ms transpose, round-3
-        # profiler), but Mosaic requires block second-minor dims to be
-        # multiples of 8 or equal to the array dim — per-tile blocks of a
-        # tiles-second-minor array are illegal.  Measured constraint, not
-        # a choice.
-        out_specs.append(
-            pl.BlockSpec((1, emit_k, tile_rays), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
+        cl = list_ref[tile, i]
+        t, base = _hit_test(rec_ref, cl, o, w)
+        if member_masked or glass_flag:
+            glass = base & (gm_ref[cl, :][:, None] > 0.5)
+        if member_masked:
+            base = glass
+        valid = (base & (t <= 1.0)) if capped else base
+        blocked = jnp.maximum(
+            carry[0], jnp.max(valid.astype(jnp.int32), axis=0)
         )
-        out_shape.append(
-            jax.ShapeDtypeStruct((tiles, emit_k, tile_rays), jnp.float32,
-                                 vma=vma)
-        )
+        if not glass_flag:
+            return (blocked,)
+        # the glass accumulator is UNCAPPED: a refractive hit anywhere on
+        # the ray (even beyond the light) routes the lane to the faithful
+        # bend-walk
+        return (blocked, jnp.maximum(
+            carry[1], jnp.max(glass.astype(jnp.int32), axis=0)
+        ))
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(tiles,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-    )
-
-    out = pl.pallas_call(
-        functools.partial(_trace_kernel, emit_k=emit_k,
-                          early_exit=early_exit),
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*operands)
-    if emit_k:
-        return out[0], out[1], out[2]
-    return out[0], out[1]
+    zero = jnp.zeros((block,), jnp.int32)
+    init = (zero, zero) if glass_flag else (zero,)
+    out = jax.lax.fori_loop(0, counts_ref[tile], body, init)
+    out_lanes = pl.ds(q * block, block)
+    for ref, val in zip(rest, out):
+        ref[out_lanes] = val
 
 
-def _trace_kernel_merged(
-    counts_ref,  # [tiles] SMEM
-    cluster_list_ref,  # [M, 1, L] SMEM block (tiles i*M .. i*M+M-1)
-    o_ref,  # [1, 3, M*TR] VMEM
-    d_ref,
-    n_ref, nv0_ref, m_ref, c_ref, nobf_ref, tid_ref,
-    *rest,
-    emit_k: int = 0,
-    merge: int = 2,
-    tile_rays: int = TILE_RAYS,
-):
-    """``merge`` tiles per grid step: sub-tile walks run back to back on
-    static lane windows of one fat block, amortizing the per-step fixed
-    cost (sequencing, block revolve, output write-back) that dominates a
-    sparse-cluster-list dense trace (~1.6 clusters/tile on 14-01) — while
-    the BINNING stays at TILE_RAYS granularity, unlike raising TILE_RAYS
-    itself (measured dead: looser frustums)."""
-    if emit_k:
-        rows_ref, best_t_ref, best_tri_ref, best_rows_ref = rest
-    else:
-        best_t_ref, best_tri_ref = rest
-    i = pl.program_id(0)
-    for sub in range(merge):
-        count = counts_ref[i * merge + sub]
-        _trace_tile_body(
-            count, cluster_list_ref, o_ref, d_ref, n_ref, nv0_ref, m_ref,
-            c_ref, nobf_ref, tid_ref,
-            (rows_ref, best_t_ref, best_tri_ref, best_rows_ref) if emit_k
-            else (best_t_ref, best_tri_ref),
-            emit_k,
-            lane_lo=sub * tile_rays, lane_hi=(sub + 1) * tile_rays,
-            cl_row=sub,
+def _compiler_params():
+    return plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=NUM_STAGES)
+
+
+def _check_tiling(tile_rays: int, block: int):
+    if tile_rays % block:
+        raise ValueError(
+            f"BLOCK_RAYS={block} must divide the binning tile {tile_rays}"
         )
 
 
-def _closest_hit_binned_merged(
-    tables: ClusterTables,
-    o_t: jnp.ndarray,  # [tiles, 3, TR], tiles % merge == 0
-    d_t: jnp.ndarray,
-    cluster_list: jnp.ndarray,  # [tiles, 1, L]
-    counts: jnp.ndarray,  # [tiles]
-    tile_rays: int,
-    interpret: bool,
-    rows_table: jnp.ndarray | None = None,
-    merge: int = 2,
-) -> tuple[jnp.ndarray, ...]:
-    """_closest_hit_binned with ``merge`` tiles per grid step."""
-    tiles = o_t.shape[0]
-    L = tables.n.shape[0]
-    emit_k = 0 if rows_table is None else int(rows_table.shape[2])
-    G = tiles // merge
-    fat = merge * tile_rays
-    o_f = o_t.reshape(G, merge, 3, tile_rays).swapaxes(1, 2).reshape(
-        G, 3, fat
-    )
-    d_f = d_t.reshape(G, merge, 3, tile_rays).swapaxes(1, 2).reshape(
-        G, 3, fat
-    )
-
-    in_specs = [
-        pl.BlockSpec((merge, 1, L), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, 3, fat), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 3, fat), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # tid
-    ]
-    out_specs = [
-        pl.BlockSpec((1, 1, fat), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 1, fat), lambda i, c: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    vma = _out_vma(counts, cluster_list, o_f, d_f, *tables)
-    out_shape = [
-        jax.ShapeDtypeStruct((G, 1, fat), jnp.float32, vma=vma),
-        jax.ShapeDtypeStruct((G, 1, fat), jnp.int32, vma=vma),
-    ]
-    operands = [
-        counts, cluster_list, o_f, d_f,
-        tables.n, tables.nv0, tables.m, tables.c, tables.nobf,
-        tables.tri_id,
-    ]
-    if emit_k:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-        operands.append(rows_table)
-        out_specs.append(
-            pl.BlockSpec((1, emit_k, fat), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        out_shape.append(
-            jax.ShapeDtypeStruct((G, emit_k, fat), jnp.float32, vma=vma)
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(G,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-    )
-    out = pl.pallas_call(
-        functools.partial(_trace_kernel_merged, emit_k=emit_k, merge=merge,
-                          tile_rays=tile_rays),
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*operands)
-
-    def unfat(x):
-        k = x.shape[1]
-        return x.reshape(G, k, merge, tile_rays).swapaxes(1, 2).reshape(
-            tiles, k, tile_rays
-        )
-
-    if emit_k:
-        return unfat(out[0]), unfat(out[1]), unfat(out[2])
-    return unfat(out[0]), unfat(out[1])
-
-
-def _closest_hit_binned_compact(
-    tables: ClusterTables,
-    o_t: jnp.ndarray,  # [tiles, 3, TR] (or [tile_mod, 3, TR], see below)
-    d_t: jnp.ndarray,
-    cluster_list: jnp.ndarray,  # [tiles, 1, L] i32
-    counts: jnp.ndarray,  # [tiles] i32
-    tile_rays: int,
-    interpret: bool,
-    rows_table: jnp.ndarray | None = None,
-    tile_mod: int | None = None,
-    lb: jnp.ndarray | None = None,
-    act_t: jnp.ndarray | None = None,
-) -> tuple[jnp.ndarray, ...]:
-    """_closest_hit_binned with LIVE-TILE compaction: sparse wavefronts
-    (shadow tiles are ~85 % dead on the course benchmark — zero clusters
-    after frustum culling) pay a grid step + ray-tile DMA per dead tile in
-    the plain launch.  Here a live-first tile permutation rides the scalar
-    prefetch, the BlockSpec index maps follow it, and lax.switch picks the
-    smallest grid tier in {tiles/8, tiles/4, tiles/2, tiles} that holds the
-    live count — dead tiles beyond it are never sequenced at all.  Tiles
-    the kernel never visits are misses by construction (count == 0) and
-    are masked outside.  Bit-identical to the plain launch."""
-    tiles = counts.shape[0]  # o_t may be tile_mod-shrunk
-    L = tables.n.shape[0]
-    emit_k = 0 if rows_table is None else int(rows_table.shape[2])
-    early_exit = lb is not None
-    if early_exit and act_t is None:
-        # settle-bound plane: huge sentinel = only best_t settles
-        act_t = jnp.full((tiles, 1, tile_rays), 3.4e38, jnp.float32)
-
-    live = counts > 0
-    n_live = jnp.sum(live, dtype=jnp.int32)
-    order = jnp.argsort(~live, stable=True).astype(jnp.int32)
-    # steps >= n_live re-point at the LAST live tile: the block index stays
-    # put, so the pipeline issues no DMA and the kernel skips them via
-    # p < n_live
-    step = jnp.arange(tiles, dtype=jnp.int32)
-    tile_ids = order[jnp.minimum(step, jnp.maximum(n_live - 1, 0))]
-    nlive_arr = n_live.reshape(1)
-    # tile_mod: a shadow wavefront's per-light origin tiles are IDENTICAL —
-    # o_t then has only tiles/Ll rows and the index map wraps, skipping the
-    # Ll-fold broadcast materialization + transpose in HBM
-    if tile_mod:
-        o_map = lambda i, nl, ts, c: (ts[i] % tile_mod, 0, 0)
-    else:
-        o_map = lambda i, nl, ts, c: (ts[i], 0, 0)
-
-    def launch(cap):
-        in_specs = [
-            pl.BlockSpec((1, 1, L), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3, tile_rays), o_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 3, tile_rays), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # n
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nv0
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # m
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # c
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # nobf
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # tid
-        ]
-        out_specs = [
-            pl.BlockSpec((1, 1, tile_rays), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tile_rays), lambda i, nl, ts, c: (ts[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-        vma = _out_vma(nlive_arr, tile_ids, counts, cluster_list, o_t,
-                       d_t, *tables)
-        out_shape = [
-            jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.float32,
-                                 vma=vma),
-            jax.ShapeDtypeStruct((tiles, 1, tile_rays), jnp.int32, vma=vma),
-        ]
-        operands = [
-            nlive_arr, tile_ids[:cap], counts, cluster_list, o_t, d_t,
-            tables.n, tables.nv0, tables.m, tables.c, tables.nobf,
-            tables.tri_id,
-        ]
-        if early_exit:
-            in_specs.append(
-                pl.BlockSpec((1, 1, L), lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.SMEM)
-            )
-            operands.append(lb)
-            in_specs.append(
-                pl.BlockSpec((1, 1, tile_rays),
-                             lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.VMEM)
-            )
-            operands.append(act_t)
-        if emit_k:
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-            operands.append(rows_table)
-            out_specs.append(
-                pl.BlockSpec((1, emit_k, tile_rays),
-                             lambda i, nl, ts, c: (ts[i], 0, 0),
-                             memory_space=pltpu.VMEM)
-            )
-            out_shape.append(
-                jax.ShapeDtypeStruct((tiles, emit_k, tile_rays), jnp.float32,
-                                     vma=vma)
-            )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,  # n_live, tile_ids, counts
-            grid=(cap,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-        )
-        return pl.pallas_call(
-            functools.partial(_trace_kernel_compact, emit_k=emit_k,
-                              early_exit=early_exit),
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(*operands)
-
-    caps = sorted({max(1, tiles >> s) for s in (3, 2, 1, 0)})
-    if len(caps) == 1:
-        out = launch(caps[0])
-    else:
-        tier = jnp.searchsorted(
-            jnp.asarray(caps, jnp.int32), n_live, side="left"
-        )
-        tier = jnp.minimum(tier, len(caps) - 1)
-        out = jax.lax.switch(
-            tier, [functools.partial(launch, c) for c in caps]
-        )
-
-    lv = live[:, None, None]
-    best_t = jnp.where(lv, out[0], jnp.inf)
-    best_tri = jnp.where(lv, out[1], -1)
-    if emit_k:
-        return best_t, best_tri, jnp.where(lv, out[2], 0.0)
-    return best_t, best_tri
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tile_rays", "interpret", "compact",
-                              "near_exit")
-)
 def closest_hit_pallas_flat(
     tables: ClusterTables,
-    origins: jnp.ndarray,  # [R, 3], R % tile_rays == 0
+    origins: jnp.ndarray,  # [R, 3], R % TILE_RAYS == 0
     dirs: jnp.ndarray,
     active=None,  # [R] bool or None
-    tile_rays: int = TILE_RAYS,
     interpret: bool = False,
-    rows_table=None,  # [L, S, Kp] -> also return emitted rows [Kp, R]
-    compact: bool = False,  # live-tile compacted launch (sparse wavefronts)
-    near_exit: bool = False,  # near-first cluster walk with early exit
-):
+) -> Hit:
+    """Phase A binning + the closest-hit walk over a flat wavefront."""
+    _check_tiling(TILE_RAYS, BLOCK_RAYS)
+    return _closest_hit_flat(tables, origins, dirs, active, interpret,
+                             TILE_RAYS, BLOCK_RAYS)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("interpret", "tile_rays", "block"))
+def _closest_hit_flat(tables, origins, dirs, active, interpret, tile_rays,
+                      block):
     R = origins.shape[0]
-    tiles = R // tile_rays
-
-    lb = act_t = None
-    if near_exit:
-        cluster_list, counts, lb = bin_rays(
-            tables, origins, dirs, tile_rays, active, near_order=True
-        )
-        # Per-lane SETTLE BOUND: a conservative scene-box exit distance.
-        # Every real hit lies inside the global cluster box, so t_hit <=
-        # exit; once the walk's remaining lower bound passes it the lane
-        # is final even on a MISS — the fix for round-4's open-scene
-        # regression (miss lanes held the while-exit open forever).
-        lo = tables.cl_min.min(axis=0)
-        hi = tables.cl_max.max(axis=0)
-        small = jnp.abs(dirs) < 1e-12
-        dsafe = jnp.where(small, 1.0, dirs)
-        tx1 = (lo[None] - origins) / dsafe
-        tx2 = (hi[None] - origins) / dsafe
-        tex = jnp.where(small, jnp.float32(3.4e38),
-                        jnp.maximum(tx1, tx2)).min(axis=-1)
-        tex = tex * 1.0001 + 1e-4  # upward slack for f32 rounding
-        if active is not None:
-            tex = jnp.where(active, tex, -1.0)
-        act_t = tex.reshape(tiles, 1, tile_rays)
-    else:
-        cluster_list, counts = bin_rays(
-            tables, origins, dirs, tile_rays, active
-        )
-
-    o_t = origins.reshape(tiles, tile_rays, 3).swapaxes(1, 2)  # [tiles,3,TR]
-    d_t = dirs.reshape(tiles, tile_rays, 3).swapaxes(1, 2)
-    if (not compact and not near_exit and _TILE_MERGE > 1
-            and tiles % _TILE_MERGE == 0):
-        out = _closest_hit_binned_merged(
-            tables, o_t, d_t, cluster_list, counts, tile_rays, interpret,
-            rows_table=rows_table, merge=_TILE_MERGE,
-        )
-    else:
-        launcher = (_closest_hit_binned_compact if compact
-                    else _closest_hit_binned)
-        out = launcher(
-            tables, o_t, d_t, cluster_list, counts, tile_rays, interpret,
-            rows_table=rows_table, lb=lb, act_t=act_t,
-        )
-    hit = Hit(t=out[0].reshape(-1), tri=out[1].reshape(-1))
-    if rows_table is not None:
-        kp = rows_table.shape[2]
-        rows = jnp.moveaxis(out[2], 1, 0).reshape(kp, -1)  # [Kp, R]
-        return hit, rows
-    return hit
+    cluster_list, counts = bin_rays(tables, origins, dirs, tile_rays, active)
+    o_t = origins.T  # [3, R]: each program reads 3 contiguous B-wide rows
+    d_t = dirs.T
+    rec = cluster_records(tables)
+    operands = (counts, cluster_list, o_t, d_t, rec)
+    vma = _out_vma(*operands)
+    best_t, best_tri = pl.pallas_call(
+        functools.partial(_closest_kernel, block=block,
+                          sub=tile_rays // block),
+        grid=(R // block,),
+        out_shape=(
+            jax.ShapeDtypeStruct((R,), jnp.float32, vma=vma),
+            jax.ShapeDtypeStruct((R,), jnp.int32, vma=vma),
+        ),
+        backend="triton",
+        compiler_params=_compiler_params(),
+        interpret=interpret,
+        name="crt_closest_hit",
+    )(*operands)
+    return Hit(t=best_t, tri=best_tri)
 
 
-def make_pallas_trace_fn(scene, tile_rays: int | None = None,
-                         interpret: bool = False,
-                         use_occlusion_kernel: bool = False,
-                         cluster_size: int | None = None,
-                         use_shadow_binning: bool = False,
-                         compact_masked: bool = False,
-                         shadow_tile_rays: int | None = None):
+def occluded_w(rec, point, shadow_o, light_positions, cluster_list, counts,
+               interpret: bool, capped: bool = True, member_mask=None,
+               glass_flag: bool = False):
+    """Launch the w-form occlusion kernel over a binned [Ll*R] wavefront.
+
+    point/shadow_o: [R, 3] (shared by every light); light_positions [Ll, 3];
+    cluster_list/counts from bin_apex_shared.  Returns blocked [Ll, R] bool
+    (and, with ``glass_flag``, the glass-on-ray [Ll, R] bool as well).
+    ``rec`` is cluster_records of the tables the lists were binned on."""
+    tile_rays, block = TILE_RAYS, BLOCK_RAYS
+    _check_tiling(tile_rays, block)
+    R = point.shape[0]
+    Ll = light_positions.shape[0]
+    operands = [counts, cluster_list, light_positions, shadow_o.T, point.T,
+                rec]
+    if member_mask is not None:
+        operands.append(member_mask)
+    vma = _out_vma(*operands)
+    n_out = 2 if glass_flag else 1
+    outs = pl.pallas_call(
+        functools.partial(
+            _occl_kernel, block=block, sub=tile_rays // block,
+            blocks_per_light=R // block, capped=capped,
+            member_masked=member_mask is not None and not glass_flag,
+            glass_flag=glass_flag,
+        ),
+        grid=(Ll * R // block,),
+        out_shape=tuple(
+            jax.ShapeDtypeStruct((Ll * R,), jnp.int32, vma=vma)
+            for _ in range(n_out)
+        ),
+        backend="triton",
+        compiler_params=_compiler_params(),
+        interpret=interpret,
+        name="crt_occluded_w",
+    )(*operands)
+    outs = tuple((x > 0).reshape(Ll, R) for x in outs)
+    return outs if glass_flag else outs[0]
+
+
+def make_pallas_trace_fn(scene, interpret: bool = False):
     """trace_fn factory for the Pallas backend.
 
-    ``use_occlusion_kernel`` exposes the any-hit early-exit kernel as
-    ``trace.occluded`` — measured SLOWER on the course benchmark scene (the
-    serial scf.while blocks Mosaic's cluster-load pipelining and lit tiles
-    walk the full list anyway), so it is off by default; scenes with heavy
-    occlusion may profit.  ``cluster_size`` (default CLUSTER_SIZE) trades
-    binning-mask width against per-cluster test burst size (the kernel is
-    shape-agnostic over the cluster axis).  ``use_shadow_binning`` exposes
-    the shadow-structured Phase A (``bin_shadow_rays``: shared origin
-    intervals + beyond-the-light t-cap culling) as ``trace.shadow_occluded``
-    — occlusion-exact (parity-tested bit-identical) but measured ~5% SLOWER
-    full-frame on the course benchmark scene (the generic path's light-major
-    tiles already give per-light direction bounds, and the per-pair gathers
-    cost more than the shared origin reduction saves), so off by default.
-    ``compact_masked`` routes every ACTIVE-MASKED trace (bounce wavefronts,
-    whose live lanes thin out with depth) through the live-tile compacted
-    launch (see _closest_hit_binned_compact); the shadow path always uses
-    it.  Opt-in pending a TPU measurement on branching/GI scenes — it
-    compiles 4 grid tiers per trace call site.  ``shadow_tile_rays``
-    (default: ``tile_rays``) sets a SEPARATE tile size for the apex-binned
-    shadow path only — shadow wavefronts are sparse (~85 % dead tiles on
-    the course benchmark after facing/active culling), so smaller tiles
-    tighten shaft frustums and let the compacted launch skip more, without
-    touching the dense primary trace's tuned 1024.
+    ``trace(origins, dirs, active=None) -> Hit`` is the closest-hit walk.
+    Shadow queries of point-light wavefronts go through ``shadow_apex_w``
+    (and, on refractive scenes, ``shadow_apex_w_glass`` / ``refr_ray_hit_w``
+    for the transmissive-march router) — see shade._occlusion_masks.
     """
-    tile_rays = tile_rays or TILE_RAYS
-    if shadow_tile_rays:
-        # Lanes are 128-wide on TPU; a non-multiple fails Pallas compilation
-        # with an opaque layout error, and a size that does not divide the
-        # per-light ray count silently falls back to the generic dense
-        # trace (losing apex binning + live-tile compaction) — validate
-        # here, warn there (see shadow_apex).
-        if shadow_tile_rays % 128:
-            raise ValueError(
-                f"shadow_tile_rays={shadow_tile_rays} must be a multiple of"
-                " the 128-lane TPU tile width"
-            )
-    tables = build_cluster_tables(scene, cluster_size)
-    tables = jax.tree.map(jax.lax.stop_gradient, tables)
-    rows_table_cache = []
+    tables = jax.tree.map(jax.lax.stop_gradient, build_cluster_tables(scene))
+    rec = cluster_records(tables)
+    sg = jax.lax.stop_gradient
 
-    def _trace_impl(origins, dirs, active, want_rows, near=None):
+    def trace(origins, dirs, active=None):
         batch_shape = origins.shape[:-1]
-        o = origins.reshape(-1, 3)
-        d = dirs.reshape(-1, 3)
+        o = sg(origins).reshape(-1, 3)
+        d = sg(dirs).reshape(-1, 3)
         R = o.shape[0]
-        pad = (-R) % tile_rays
+        pad = (-R) % TILE_RAYS
+        a = None if active is None else sg(active).reshape(-1)
         if pad:
             o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
             dpad = jnp.tile(jnp.asarray([[0.0, 0.0, -1.0]], d.dtype), (pad, 1))
             d = jnp.concatenate([d, dpad])
-        if active is not None:
-            a = active.reshape(-1)
-            if pad:
-                a = jnp.concatenate([a, jnp.zeros((pad,), bool)])
-            a = jax.lax.stop_gradient(a)
-        else:
-            a = None
-        rows_table = None
-        if want_rows:
-            if not rows_table_cache:
-                rows_table_cache.append(
-                    jax.lax.stop_gradient(emit_rows_table(scene, tables))
-                )
-            rows_table = rows_table_cache[0]
-        out = closest_hit_pallas_flat(
-            tables,
-            jax.lax.stop_gradient(o),
-            jax.lax.stop_gradient(d),
-            a,
-            tile_rays=tile_rays,
-            interpret=interpret,
-            rows_table=rows_table,
-            compact=compact_masked and a is not None,
-            near_exit=_NEAR_EXIT if near is None else near,
-        )
-        hit, rows = out if want_rows else (out, None)
-        hit = Hit(
+            a = jnp.concatenate([
+                jnp.ones((R,), bool) if a is None else a,
+                jnp.zeros((pad,), bool),
+            ])
+        hit = closest_hit_pallas_flat(tables, o, d, a, interpret=interpret)
+        return Hit(
             t=hit.t[:R].reshape(batch_shape),
             tri=hit.tri[:R].reshape(batch_shape),
         )
-        if want_rows:
-            return hit, rows[:, :R]
-        return hit
 
-    def trace(origins, dirs, active=None):
-        return _trace_impl(origins, dirs, active, False)
-
-    def trace_near(origins, dirs, active=None):
-        """Closest hit via the near-origin-first bounded-exit walk
-        (bin_rays near_order + the per-lane scene-box settle bound).
-        Same results up to cross-cluster exact-t tie order; built for
-        wavefronts whose hits are NEAR (the transmissive march's bent
-        continuations exit the glass almost immediately) where the
-        default Morton-order walk runs to full count."""
-        return _trace_impl(origins, dirs, active, False, near=True)
-
-    trace.near = trace_near
-
-    def trace_with_rows(origins, dirs, active=None):
-        """(Hit, rows [K+1, R]) — kernel-emitted packed rows + slot-rank
-        row (bit-identical to the packed gather; see emit_rows_table)."""
-        return _trace_impl(origins, dirs, active, True)
-
-    # The rows table's minor dim pads to 128 lanes (~8 KB/cluster of VMEM);
-    # only offer the emitting path while that stays small next to the ~16 MB
-    # core budget — callers fall back to the packed gather otherwise.
-    L = tables.tri_id.shape[0]
-    S = tables.tri_id.shape[1]
-    if L * S * 128 * 4 <= (4 << 20):
-        trace.with_rows = trace_with_rows
-
-    def occluded(origins, dirs, r2, active=None):
-        """Any-hit occlusion fast path (see shade._occlusion_masks)."""
-        batch_shape = origins.shape[:-1]
-        o = origins.reshape(-1, 3)
-        d = dirs.reshape(-1, 3)
-        rr = r2.reshape(-1)
-        R = o.shape[0]
-        pad = (-R) % tile_rays
-        if pad:
-            o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
-            dpad = jnp.tile(jnp.asarray([[0.0, 0.0, -1.0]], d.dtype), (pad, 1))
-            d = jnp.concatenate([d, dpad])
-            rr = jnp.concatenate([rr, jnp.zeros((pad,), rr.dtype)])
-        if active is not None:
-            a = active.reshape(-1)
-            if pad:
-                a = jnp.concatenate([a, jnp.zeros((pad,), bool)])
-            a = jax.lax.stop_gradient(a)
-        else:
-            a = jnp.concatenate(
-                [jnp.ones((R,), bool), jnp.zeros((pad,), bool)]
-            ) if pad else None
-        occ = occluded_pallas_flat(
-            tables,
-            jax.lax.stop_gradient(o),
-            jax.lax.stop_gradient(d),
-            jax.lax.stop_gradient(rr),
-            a,
-            tile_rays=tile_rays,
-            interpret=interpret,
+    def _shadow(point, shadow_o, light_positions, active, origin_slack,
+                capped=True, member_mask=None, glass_flag=False,
+                boxes=None, glass_boxes=None):
+        Ll, R = active.shape
+        if R % TILE_RAYS:
+            return None  # caller falls back to the generic trace
+        cluster_list, counts = bin_apex_shared(
+            tables, sg(shadow_o), sg(light_positions), sg(active),
+            TILE_RAYS, origin_slack, boxes=boxes, capped=capped,
+            glass_boxes=glass_boxes,
         )
-        return occ[:R].reshape(batch_shape)
-
-    def shadow_occluded(shadow_o, light_dirs, r2, light_positions, active,
-                        origin_slack):
-        """Occlusion masks for a point-light shadow wavefront -> [Ll, R] bool.
-
-        shadow_o [R, 3] per-pixel biased origins (shared by every light);
-        light_dirs [Ll, R, 3] normalized (the kernel sees the SAME lanes as
-        the generic path — bit-identical hits); r2 [Ll, R] squared light
-        distances; active [Ll, R].  Only the binning differs: per-light
-        direction intervals come from interval arithmetic on the origin box
-        (see bin_shadow_rays), with a t-cap that culls clusters entirely
-        beyond the light — occlusion-exact, since hits beyond the light
-        never occlude (crt_renderer.cpp:92 compares hit^2 vs light_dist^2).
-        """
-        Ll, R = r2.shape
-        o_flat = jnp.broadcast_to(shadow_o[None], (Ll, R, 3)).reshape(-1, 3)
-        d_flat = light_dirs.reshape(-1, 3)
-        a_flat = jax.lax.stop_gradient(active).reshape(-1)
-        if R % tile_rays:
-            sh = trace(o_flat, d_flat, a_flat)
-            sh_t = jax.lax.stop_gradient(sh.t)
-            occ = (sh.tri >= 0) & (sh_t * sh_t <= r2.reshape(-1))
-            return occ.reshape(Ll, R)
-
-        tiles = (Ll * R) // tile_rays
-        cluster_list, counts = bin_shadow_rays(
-            tables,
-            jax.lax.stop_gradient(shadow_o),
-            jax.lax.stop_gradient(light_positions),
-            jax.lax.stop_gradient(active),
-            tile_rays,
-            origin_slack,
+        return occluded_w(
+            rec, sg(point), sg(shadow_o), sg(light_positions),
+            cluster_list, counts, interpret, capped=capped,
+            member_mask=member_mask, glass_flag=glass_flag,
         )
-        o_t = jax.lax.stop_gradient(o_flat).reshape(
-            tiles, tile_rays, 3
-        ).swapaxes(1, 2)
-        d_t = jax.lax.stop_gradient(d_flat).reshape(
-            tiles, tile_rays, 3
-        ).swapaxes(1, 2)
-        best_t, best_tri = _closest_hit_binned(
-            tables, o_t, d_t, cluster_list, counts, tile_rays, interpret
-        )
-        sh_t = best_t.reshape(-1)
-        occ = (best_tri.reshape(-1) >= 0) & (
-            sh_t * sh_t <= jax.lax.stop_gradient(r2).reshape(-1)
-        )
-        return occ.reshape(Ll, R)
-
-    def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
-                    origin_slack):
-        """Occlusion masks for a point-light shadow wavefront -> [Ll, R]
-        bool, binned with the light-side shaft frustum (see bin_rays apex
-        mode).  Same kernel, same lanes, occlusion-exact — only the per-tile
-        cluster lists shrink (−35 % pairs measured on 14-01)."""
-        Ll, R = r2.shape
-        st = shadow_tile_rays or tile_rays
-        o_flat = jnp.broadcast_to(shadow_o[None], (Ll, R, 3)).reshape(-1, 3)
-        d_flat = light_dirs.reshape(-1, 3)
-        a_flat = jax.lax.stop_gradient(active).reshape(-1)
-        r2_flat = jax.lax.stop_gradient(r2).reshape(-1)
-        if R % st:
-            # Fallback: a tile size that does not divide the per-light ray
-            # count cannot be apex-binned — the fully generic dense trace
-            # over all Ll*R lanes loses binning AND live-tile compaction
-            # (a large perf cliff); make the misconfiguration visible.
-            if shadow_tile_rays:
-                import warnings
-
-                warnings.warn(
-                    f"shadow_tile_rays={st} does not divide the per-light"
-                    f" ray count {R}; falling back to the dense unbinned"
-                    " shadow trace (slow)",
-                    stacklevel=2,
-                )
-            sh = trace(o_flat, d_flat, a_flat)
-            sh_t = jax.lax.stop_gradient(sh.t)
-            occ = (sh.tri >= 0) & (sh_t * sh_t <= r2_flat)
-            return occ.reshape(Ll, R)
-
-        tiles = (Ll * R) // st
-        apex = jnp.repeat(
-            jax.lax.stop_gradient(light_positions), R // st, axis=0
-        )  # [Ll * tiles_per_light, 3]
-        binned = bin_rays(
-            tables,
-            jax.lax.stop_gradient(o_flat),
-            jax.lax.stop_gradient(d_flat),
-            st,
-            a_flat,
-            apex=apex,
-            apex_slack=origin_slack,
-            near_order=_OCCL_EXIT and _SHADOW_OCCL_KERNEL,
-        )
-        cluster_list, counts = binned[0], binned[1]
-        # per-light origin tiles are identical: keep ONE pixel-tile copy
-        # and let the launcher's index map wrap (skips materializing the
-        # Ll-fold broadcast + its 8M-lane transpose in HBM)
-        tpl = R // st
-        o_t = jax.lax.stop_gradient(shadow_o).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        d_t = jax.lax.stop_gradient(d_flat).reshape(
-            tiles, st, 3
-        ).swapaxes(1, 2)
-        if _SHADOW_OCCL_KERNEL:
-            # Occlusion-specialized kernel: OR-accumulate any (t^2 <= r2)
-            # hit — same boolean as closest-hit-then-compare (any valid t
-            # with t^2 <= r2 exists iff min_t^2 <= r2), minus the
-            # tie-break reduction, tid DMA and one output buffer.
-            r2_t = r2_flat.reshape(tiles, 1, st)
-            act_t = (a_flat.astype(jnp.float32).reshape(tiles, 1, st)
-                     if _OCCL_EXIT else None)
-            occ = _occluded_binned_compact(
-                tables, o_t, d_t, r2_t, cluster_list, counts, st, interpret,
-                tile_mod=tpl, act_t=act_t,
-            )
-            return occ.reshape(Ll, R)
-        best_t, best_tri = _closest_hit_binned_compact(
-            tables, o_t, d_t, cluster_list, counts, st, interpret,
-            tile_mod=tpl,
-        )
-        sh_t = best_t.reshape(-1)
-        occ = (best_tri.reshape(-1) >= 0) & (sh_t * sh_t <= r2_flat)
-        return occ.reshape(Ll, R)
-
-    trace.shadow_apex = shadow_apex
-
-    def _lane_gate_boxes(origin_slack):
-        """Pre-inflated [L, 3] cluster boxes for the in-kernel lane gate
-        (None when the gate is off).  Inflation: 2x the caller's origin
-        slack (the binning convention, covers the bias offset) plus a
-        small absolute epsilon against slab-arithmetic rounding."""
-        if not _APEX_LANE_GATE:
-            return None
-        lo = jax.lax.stop_gradient(tables.cl_min)
-        hi = jax.lax.stop_gradient(tables.cl_max)
-        eps = 2.0 * jnp.float32(origin_slack) + 1e-5 * jnp.max(hi - lo)
-        return (lo - eps, hi + eps)
 
     def shadow_apex_w(point, shadow_o, light_positions, active,
                       origin_slack):
-        """Occlusion masks with IN-KERNEL shadow directions -> [Ll, R]
-        bool.  ``point`` [R, 3] unbiased hit points, ``shadow_o`` [R, 3]
-        biased origins — the kernel derives each lane's unnormalized
-        direction w = light − point from 3 SMEM scalars per tile and
-        tests the reference's occlusion condition as s ≤ 1 (|w| cancels
-        exactly).  The 8M-lane light_dir build + retile this replaces
-        measured ~3.5 ms/frame (round-4 attribution); binning reduces
-        origin boxes once over the pixel lanes (bin_apex_shared)."""
-        Ll, R = active.shape
-        st = shadow_tile_rays or tile_rays
-        if R % st:
-            return None  # caller falls back to the generic path
-        cluster_list, counts = bin_apex_shared(
-            tables,
-            jax.lax.stop_gradient(shadow_o),
-            jax.lax.stop_gradient(light_positions),
-            jax.lax.stop_gradient(active),
-            st,
-            origin_slack,
-        )
-        tpl = R // st
-        o_t = jax.lax.stop_gradient(shadow_o).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        p_t = jax.lax.stop_gradient(point).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        apex = jnp.repeat(
-            jax.lax.stop_gradient(light_positions), tpl, axis=0
-        )[:, None, :]  # [Ll*tpl, 1, 3] (SMEM blocks: last dims whole)
-        occ = _occluded_binned_compact_w(
-            tables, o_t, p_t, apex, cluster_list, counts, st, interpret,
-            lane_boxes=_lane_gate_boxes(origin_slack),
-        )
-        return occ.reshape(Ll, R)
+        """Occlusion masks with in-kernel shadow directions -> [Ll, R]
+        bool (None when R is not a tile multiple).  ``point`` [R, 3]
+        unbiased hit points, ``shadow_o`` [R, 3] biased origins, ``active``
+        [Ll, R]; the occlusion condition is s ≤ 1 along w = light − point
+        (see _occl_kernel)."""
+        return _shadow(point, shadow_o, light_positions, active,
+                       origin_slack)
 
-    if _SHADOW_OCCL_KERNEL and _APEX_W:
-        trace.shadow_apex_w = shadow_apex_w
+    trace.shadow_apex_w = shadow_apex_w
+
+    if not (scene.has_materials and scene.has_refractive):
+        return trace
 
     def _glass_subset():
         """[L, S] f32 refractive-member mask + member-only cluster AABBs.
@@ -2263,7 +806,7 @@ def make_pallas_trace_fn(scene, tile_rays: int | None = None,
         Same tables, no rebuild: clusters keep their slots; non-glass
         members are masked in-kernel and the binning boxes shrink to the
         glass members (clusters with none carry ±INF boxes -> never
-        admitted).  Static shapes — safe under jit with traced values.
+        admitted).
         """
         from crt_tpu.scene.types import MATERIAL_REFRACTIVE
 
@@ -2273,9 +816,7 @@ def make_pallas_trace_fn(scene, tile_rays: int | None = None,
         is_glass = (
             scene.mat_type[scene.tri_material] == MATERIAL_REFRACTIVE
         )[ids] & ~padm  # [L, S]
-        pts = jax.lax.stop_gradient(scene.vertices)[
-            scene.tri_vidx[ids]
-        ]  # [L, S, 3, 3]
+        pts = sg(scene.vertices)[scene.tri_vidx[ids]]  # [L, S, 3, 3]
         g = is_glass[..., None, None]
         gmin = jnp.where(g, pts, INF).min(axis=(1, 2))  # [L, 3]
         gmax = jnp.where(g, pts, -INF).max(axis=(1, 2))
@@ -2283,168 +824,47 @@ def make_pallas_trace_fn(scene, tile_rays: int | None = None,
 
     def shadow_apex_w_glass(point, shadow_o, light_positions, active,
                             origin_slack):
-        """ONE w-kernel pass -> (occluded [Ll, R], glass_on_ray
-        [Ll, R]): same occlusion bits as shadow_apex_w plus "some
-        REFRACTIVE member hits anywhere on the UNBOUNDED ray" — the
-        one-pass transmissive-march router (shade._occlusion_masks),
-        REFERENCE-EXACT: the walk it routes around bends at refractive
-        hits even beyond the light (crt_renderer.cpp:29-44), so the
-        binning walks the union of the capped shaft hull and the
-        uncapped glass-member reach (the extra clusters cannot add
-        s <= 1 occlusion hits) and the kernel's glass accumulator drops
-        the s <= 1 cap.  A lane with no glass anywhere on its ray
-        resolves exactly as if all blockers were opaque; only
-        glass-flagged lanes pay the faithful march."""
-        Ll, R = active.shape
-        st = shadow_tile_rays or tile_rays
-        if R % st:
-            return None
+        """ONE w-kernel pass -> (occluded [Ll, R], glass_on_ray [Ll, R]):
+        the occlusion bits of shadow_apex_w plus "some REFRACTIVE member
+        hits anywhere on the UNBOUNDED ray" — the one-pass
+        transmissive-march router (shade._occlusion_masks).  The binning
+        walks the union of the capped shaft hull and the uncapped
+        glass-member reach (the extra clusters cannot add s <= 1
+        occlusion hits); the kernel's glass accumulator drops the cap."""
         gm, gmin, gmax = _glass_subset()
-        cluster_list, counts = bin_apex_shared(
-            tables,
-            jax.lax.stop_gradient(shadow_o),
-            jax.lax.stop_gradient(light_positions),
-            jax.lax.stop_gradient(active),
-            st,
-            origin_slack,
-            glass_boxes=(gmin, gmax),
-        )
-        tpl = R // st
-        o_t = jax.lax.stop_gradient(shadow_o).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        p_t = jax.lax.stop_gradient(point).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        apex = jnp.repeat(
-            jax.lax.stop_gradient(light_positions), tpl, axis=0
-        )[:, None, :]
-        occ, glass = _occluded_binned_compact_w(
-            tables, o_t, p_t, apex, cluster_list, counts, st, interpret,
-            member_mask=gm, glass_flag=True,
-            lane_boxes=_lane_gate_boxes(origin_slack),
-        )
-        return occ.reshape(Ll, R), glass.reshape(Ll, R)
-
-    if _SHADOW_OCCL_KERNEL and _APEX_W and scene.has_materials \
-            and scene.has_refractive:
-        trace.shadow_apex_w_glass = shadow_apex_w_glass
+        return _shadow(point, shadow_o, light_positions, active,
+                       origin_slack, member_mask=gm, glass_flag=True,
+                       glass_boxes=(gmin, gmax))
 
     def refr_ray_hit_w(point, shadow_o, light_positions, active,
                        origin_slack):
         """[Ll, R] bool: can the UNCAPPED shadow ray touch refractive
-        geometry?  The transmissive-march split's partition gate (see
-        shade._occlusion_masks): lanes whose ray never meets glass resolve
-        through the plain w-kernel occlusion; only glass-suspect lanes pay
-        the faithful bend-walk.  w-parameterized like shadow_apex_w (same
-        |n·w| epsilon reading), any-hit with s >= 0 and NO s <= 1 cap —
-        the reference's walk (crt_renderer.cpp:29-44) bends at refractive
-        hits even beyond the light."""
-        Ll, R = active.shape
-        st = shadow_tile_rays or tile_rays
-        if R % st:
-            return None  # caller falls back to the full march
+        geometry?  The separate-pass form of the march router's glass gate
+        (shade._MARCH_GATE == "uncapped"), kept as the independently
+        verifiable reference of the merged router."""
         gm, gmin, gmax = _glass_subset()
-        cluster_list, counts = bin_apex_shared(
-            tables,
-            jax.lax.stop_gradient(shadow_o),
-            jax.lax.stop_gradient(light_positions),
-            jax.lax.stop_gradient(active),
-            st,
-            origin_slack,
-            boxes=(gmin, gmax),
-            capped=False,
-        )
-        tpl = R // st
-        o_t = jax.lax.stop_gradient(shadow_o).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        p_t = jax.lax.stop_gradient(point).reshape(
-            tpl, st, 3
-        ).swapaxes(1, 2)
-        apex = jnp.repeat(
-            jax.lax.stop_gradient(light_positions), tpl, axis=0
-        )[:, None, :]
-        occ = _occluded_binned_compact_w(
-            tables, o_t, p_t, apex, cluster_list, counts, st, interpret,
-            capped=False, member_mask=gm,
-        )
-        return occ.reshape(Ll, R)
+        return _shadow(point, shadow_o, light_positions, active,
+                       origin_slack, capped=False, member_mask=gm,
+                       boxes=(gmin, gmax))
 
-    if _SHADOW_OCCL_KERNEL and _APEX_W and scene.has_materials \
-            and scene.has_refractive:
-        trace.refr_ray_hit_w = refr_ray_hit_w
-
-    def trace_reordered(origins, dirs, active=None):
-        """Trace with wavefront compaction: rays sorted by (Morton cell of
-        origin, direction octant) before binning.
-
-        Secondary wavefronts (reflection/refraction bounces) are spatially
-        scrambled in pixel order — their 1024-ray tiles get frustums covering
-        most of the scene, degenerating to brute force.  Sorting restores
-        coherence: tiles hold rays from one cell going one way.  Results are
-        scattered back to the original order, so this is a pure performance
-        transform (identical Hit output).
-        """
-        batch_shape = origins.shape[:-1]
-        o = origins.reshape(-1, 3)
-        d = dirs.reshape(-1, 3)
-        a = None if active is None else active.reshape(-1)
-
-        lo = jax.lax.stop_gradient(tables.cl_min.min(axis=0))
-        hi = jax.lax.stop_gradient(tables.cl_max.max(axis=0))
-        scale = jnp.where(hi > lo, 1023.0 / (hi - lo), 0.0)
-        q = jnp.clip((jax.lax.stop_gradient(o) - lo) * scale, 0, 1023)
-        q = q.astype(jnp.uint32)
-        cell = (
-            _part1by2(q[:, 0])
-            | (_part1by2(q[:, 1]) << 1)
-            | (_part1by2(q[:, 2]) << 2)
-        )
-        dd = jax.lax.stop_gradient(d)
-        octant = (
-            (dd[:, 0] >= 0).astype(jnp.uint32)
-            | ((dd[:, 1] >= 0).astype(jnp.uint32) << 1)
-            | ((dd[:, 2] >= 0).astype(jnp.uint32) << 2)
-        )
-        # inactive rays sort to the back so live tiles stay dense
-        key = (cell << 3) | octant
-        if a is not None:
-            key = jnp.where(a, key, jnp.uint32(0xFFFFFFFF))
-        perm = jnp.argsort(key).astype(jnp.int32)
-
-        hit = trace(
-            o[perm], d[perm], None if a is None else a[perm]
-        )
-        inv = jnp.argsort(perm).astype(jnp.int32)
-        return Hit(
-            t=hit.t[inv].reshape(batch_shape),
-            tri=hit.tri[inv].reshape(batch_shape),
-        )
-
-    trace.reordered = trace_reordered
-    if use_shadow_binning:
-        trace.shadow_occluded = shadow_occluded
-    if use_occlusion_kernel:
-        trace.occluded = occluded
-    else:
-        trace.occluded_kernel = occluded  # available, not auto-used
+    trace.shadow_apex_w_glass = shadow_apex_w_glass
+    trace.refr_ray_hit_w = refr_ray_hit_w
     return trace
 
 
 # ---------------------------------------------------------------------------
 # XLA reference evaluation of the cluster tables (kernel oracle + the local
-# intersection fallback for partitioned scenes on non-TPU platforms)
+# intersection of partitioned scenes on the CPU)
 # ---------------------------------------------------------------------------
 
 def closest_hit_tables(tables: ClusterTables, origins, dirs,
                        chunk_slots: int = 4096) -> Hit:
     """Dense closest-hit over every cluster slot, plain XLA.
 
-    Exactly the _trace_kernel per-triangle test (plane + three half-spaces,
+    Exactly the kernel's per-triangle test (plane + three half-spaces,
     backface gate, min-t with min-triangle-id tie break) without binning —
-    O(R x slots), meant for tests and as the CPU-mesh fallback of the
-    scene-partitioned path.  ``chunk_slots`` bounds the materialized
+    O(R x slots), meant for tests and as the CPU-mesh local intersection of
+    the scene-partitioned path.  ``chunk_slots`` bounds the materialized
     [R, chunk] intermediates.
     """
     L, S = tables.tri_id.shape
@@ -2457,9 +877,8 @@ def closest_hit_tables(tables: ClusterTables, origins, dirs,
 
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
-    R = o.shape[0]
     INF = jnp.float32(jnp.inf)
-    BIGID = jnp.int32(2**30)
+    BIGID = jnp.int32(_BIG_ID)
 
     pad = (-(L * S)) % chunk_slots
     if pad:
@@ -2471,7 +890,8 @@ def closest_hit_tables(tables: ClusterTables, origins, dirs,
         tid = jnp.concatenate([tid, jnp.full((pad,), -1, jnp.int32)])
     chunks = (L * S + pad) // chunk_slots
 
-    hi = jax.lax.Precision.HIGHEST  # TPU einsum defaults to bf16 MXU
+    # f32 dots must not run in TF32 (about three decimal digits) on the GPU
+    hi = jax.lax.Precision.HIGHEST
 
     def one_chunk(carry, xs):
         best_t, best_tri = carry
@@ -2494,7 +914,8 @@ def closest_hit_tables(tables: ClusterTables, origins, dirs,
         ch_best = jnp.min(t, axis=1)
         cand = jnp.where(t <= ch_best[:, None], ctid[None, :], BIGID)
         ch_tri = jnp.min(cand, axis=1)
-        better = ch_best < best_t
+        better = (ch_best < best_t) | ((ch_best == best_t)
+                                       & (ch_tri < best_tri))
         return (
             jnp.where(better, ch_best, best_t),
             jnp.where(better, ch_tri, best_tri),

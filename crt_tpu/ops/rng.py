@@ -3,11 +3,11 @@
 The reference seeds one ``crt::PCG32`` per pixel from its raster coords and
 draws uniforms sequentially during diffuse-GI sampling (crt_random.h:10-43,
 crt_renderer.cpp:68-71, :150).  To reproduce the *same sample sequence* on a
-TPU wavefront we carry the generator state per ray as four uint32 planes
+ray wavefront we carry the generator state per ray as four uint32 planes
 (state hi/lo, inc hi/lo) — JAX has no uint64 without global x64 mode, so the
 64-bit LCG step is done in 16-bit limbs.
 
-Everything is elementwise uint32 math: VPU-friendly, shape-polymorphic, and
+Everything is elementwise uint32 math: vector-friendly, shape-polymorphic, and
 identical in sequence to the C++ (verified by tests against a pure-Python
 port of the reference implementation).
 """

@@ -59,12 +59,11 @@ from crt_tpu.scene.types import (
 
 _PI = math.pi
 
-# Lane compaction by occupancy for the transmissive shadow march — MEASURED
-# DEAD (round 5): the permute gathers cost ~155 ms/step at the 4.19M-lane
-# scene8 wavefront (the XLA:TPU gather pathology) while compacted tiles'
-# cluster counts inflate to cancel the tile reduction — 2969 -> 25361 ms at
-# 540p.  Kept as an opt-in A/B flag; the shipped fix is the MARCH SPLIT
-# below (_MARCH_SPLIT).  Bit-exact either way (tests/test_lane_compact.py).
+# Lane compaction by occupancy for the transmissive shadow march: an
+# opt-in A/B flag, off by default (compacted tiles' cluster counts inflate
+# to cancel the tile reduction; not yet measured on the GPU).  The default
+# is the MARCH SPLIT below (_MARCH_SPLIT).  Bit-exact either way
+# (tests/test_lane_compact.py).
 _SHADOW_COMPACT = os.environ.get("CRT_SHADOW_COMPACT", "0") != "0"
 # Transmissive-march split: partition shadow lanes by "does refractive
 # geometry touch this ray" — glass-free lanes take the w-kernel occlusion
@@ -77,13 +76,9 @@ _SHADOW_COMPACT = os.environ.get("CRT_SHADOW_COMPACT", "0") != "0"
 # the union of the capped shaft hull and the uncapped glass reach and
 # emits the glass flag for free) or "uncapped" (a separate unbounded
 # glass-member gate pass; the independently-verifiable reference
-# implementation, ~10 % slower).
+# implementation, one extra pass per bounce).
 _MARCH_SPLIT = os.environ.get("CRT_MARCH_SPLIT", "1") != "0"
 _MARCH_GATE = os.environ.get("CRT_MARCH_GATE", "merged")
-# Near-first bounded-exit walk for the march's bent RE-TRACES (hits are
-# near: the continuation exits its glass almost immediately).  Changes
-# results only on cross-cluster exact-t ties (walk order).  A/B flag.
-_MARCH_NEAR = os.environ.get("CRT_MARCH_NEAR", "0") != "0"
 
 
 def lane_partition(alive: jnp.ndarray):
@@ -166,12 +161,11 @@ def build_packed(scene, force_all: bool = False) -> jnp.ndarray:
     unrolled recursion); [K, R] pads only K sublanes (<= 1.4x).
 
     The material rows replace six standalone [T]->[R] dynamic gathers per
-    hit_attributes call (tri_material -> type/tex/smooth/ior chains) —
-    XLA:TPU lowers 1-row small-table gathers pathologically (~17.6 ms per
-    2 M lanes measured on a 7-material scene vs ~4 ms for 4 extra rows on
-    this gather).  The discrete rows are stop-gradiented; the ior row stays
-    differentiable, so d/d mat_ior flows through the gather VJP exactly as
-    it used to through scene.mat_ior[mat].  Small ints are exact in f32.
+    hit_attributes call (tri_material -> type/tex/smooth/ior chains) with
+    four extra rows of this one gather.  The discrete rows are
+    stop-gradiented; the ior row stays differentiable, so d/d mat_ior flows
+    through the gather VJP exactly as it used to through
+    scene.mat_ior[mat].  Small ints are exact in f32.
     """
     idx = scene.tri_vidx  # [T, 3]
     cols = [
@@ -205,22 +199,8 @@ def build_packed(scene, force_all: bool = False) -> jnp.ndarray:
     return jnp.concatenate(cols, axis=-1).T  # [K, T]
 
 
-def _morton_rank(scene, T: int) -> jnp.ndarray:
-    """[T] triangle-id -> Morton cluster rank (the banded-segsum id space;
-    == the trace kernel's slot index, see pallas_trace.emit_rows_table)."""
-    from crt_tpu.ops.pallas_trace import morton_order
-
-    verts = jax.lax.stop_gradient(scene.vertices)
-    centroids = verts[scene.tri_vidx].mean(axis=1)
-    order = morton_order(centroids)  # [T] rank -> id
-    return jnp.zeros((T,), jnp.int32).at[order].set(
-        jnp.arange(T, dtype=jnp.int32)
-    )
-
-
 def hit_attributes(scene, origins, dirs, hit: Hit,
-                   force_all: bool = False, rows_fn=None,
-                   kernel_rows=None) -> HitAttributes:
+                   force_all: bool = False, rows_fn=None) -> HitAttributes:
     """Recompute intersection attributes exactly as crt_intersection.cpp:60-88.
 
     ``hit.tri`` is treated as a constant (discrete choice); everything else
@@ -228,15 +208,10 @@ def hit_attributes(scene, origins, dirs, hit: Hit,
 
     HBM note: all per-triangle data is gathered through ONE packed [K, T]
     table (one contiguous row per hit, see build_packed) rather than 9+
-    scattered vertex gathers — random-access bytes are the cost on TPU, not
+    scattered vertex gathers — random-access bytes are the cost, not
     FLOPs.  ``rows_fn(tri) -> [K, R]`` overrides the gather for partitioned
     scenes (each device holds a T/N table shard; the rows come back via a
     psum exchange — crt_tpu.parallel.scene_sharded).
-
-    ``kernel_rows`` ([K+1, R], from ``trace.with_rows``) supplies the rows
-    the Pallas trace kernel emitted (bit-identical to the gather, last row
-    = slot/Morton rank), skipping the gather entirely; AD still routes
-    cotangents into the scene arrays via packed_rows_from_kernel.
     """
     tri = jnp.maximum(jax.lax.stop_gradient(hit.tri), 0)
     valid = jax.lax.stop_gradient(hit.tri) >= 0
@@ -245,52 +220,10 @@ def hit_attributes(scene, origins, dirs, hit: Hit,
     need_bary = _needs_bary(scene) or force_all
     any_smooth = scene.any_smooth or force_all
 
-    if kernel_rows is not None and rows_fn is None and not force_all \
-            and tri.ndim == 1:
-        from crt_tpu.ops.pallas_segsum import packed_rows_from_kernel
+    if rows_fn is None:
+        from crt_tpu.ops.gather import packed_gather
 
-        packed = build_packed(scene, force_all)
-        T = packed.shape[1]
-        rank = _morton_rank(scene, T)
-        data = jax.lax.stop_gradient(kernel_rows[:-1])
-        ranked = jnp.where(
-            valid,
-            jax.lax.stop_gradient(kernel_rows[-1]).astype(jnp.int32),
-            -1,
-        )
-        rows = packed_rows_from_kernel(packed, data, ranked, rank)
-        # Miss lanes: the gather path yields triangle 0's row (clamped
-        # index); the kernel leaves them zero — patch for bit-parity.
-        # Their cotangents are provably zero (band-dropped either way).
-        rows = jnp.where(
-            valid[None], rows, jax.lax.stop_gradient(packed[:, 0:1])
-        )
-    elif rows_fn is None:
-        from crt_tpu.ops.pallas_segsum import (
-            packed_gather,
-            packed_gather_ranked_fused,
-            use_matmul_segsum,
-        )
-
-        packed = build_packed(scene, force_all)
-        # the one big gather; its VJP is the MXU segment-matmul (the XLA
-        # scatter-add here dominated round-1's backward pass).  When the
-        # kernel will engage, hand it the Morton cluster rank of each
-        # triangle so pixel-coherent ray tiles map to narrow segment bands
-        # and the kernel skips most of its grid.
-        T = packed.shape[1]
-        if tri.ndim == 1 and use_matmul_segsum(T) and T > 0:
-            tri_raw = jax.lax.stop_gradient(hit.tri)
-            rank = _morton_rank(scene, T)
-            # rank rides the gather as an extra f32 row: a standalone
-            # rank[tri] int gather measured ~15 ms on a 2 M-ray frame.
-            packed_aug = jnp.concatenate(
-                [packed, jax.lax.stop_gradient(rank).astype(jnp.float32)[None]],
-                axis=0,
-            )
-            rows = packed_gather_ranked_fused(packed_aug, tri_raw, rank)
-        else:
-            rows = packed_gather(packed, tri)  # [K, R]
+        rows = packed_gather(build_packed(scene, force_all), tri)  # [K, R]
     else:
         rows = rows_fn(tri)
     # Remat seam: under jax.checkpoint(..., policy=save_only_these_names
@@ -459,9 +392,9 @@ def light_lum(point, normal, light_positions, light_intensity, illuminated):
 
     shard_map-safe: the replicated light tables are cast to vary over the
     ray mesh axes so the per-device partial gradients type-check; the
-    cast's transpose is the cross-device psum (pallas_segsum._match_varying).
+    cast's transpose is the cross-device psum (gather._match_varying).
     """
-    from crt_tpu.ops.pallas_segsum import _match_varying, _vma_of
+    from crt_tpu.ops.gather import _match_varying, _vma_of
 
     tv = _vma_of(point)
     return _light_lum(
@@ -495,9 +428,8 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     R_px = point.shape[0] if point.ndim == 2 else None
     if R_px is not None:
         # Build FLAT-major [Ll*R, 3] first and view as [Ll, R, 3] (a free
-        # contiguous reshape): producing [Ll, R, 3] first made XLA pick a
-        # T(4,128)-tiled layout whose later flatten for the trace cost a
-        # ~1 ms 200 MB retile per frame (round-3 profiler, reshape.293).
+        # contiguous reshape): producing [Ll, R, 3] first can make XLA pick
+        # a tiled layout whose later flatten for the trace costs a retile.
         lv_flat = (
             jnp.repeat(light_positions, R_px, axis=0)
             - jnp.tile(point, (Ll, 1))
@@ -523,8 +455,7 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
         # unnormalized w = light - point from the hit points and tests
         # the reference's occlusion condition as s <= 1 (exactly
         # equivalent, |w| cancels) — the [Ll*R, 3] normalized-direction
-        # build + retile below never materializes (~3.5 ms on the 14-01
-        # frame, round-4 attribution).
+        # build + retile below never feeds a trace.
         occluded = apex_w_fn(
             jax.lax.stop_gradient(point),
             jax.lax.stop_gradient(shadow_o_px),
@@ -541,9 +472,9 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     d = light_dir.reshape(-1, 3)
     r2_flat = jax.lax.stop_gradient(r2).reshape(-1)
 
-    # Transmissive-march SPLIT (round 5, the 11-01 shadow-volume fix): the
-    # march's L*B*R closest-hit walks are ~90 % of a refractive frame, yet
-    # for the vast majority of lanes the shadow ray never meets glass and
+    # Transmissive-march SPLIT (the 11-01 shadow-volume fix): the march's
+    # L*B*R closest-hit walks dominate a refractive frame, yet for the
+    # vast majority of lanes the shadow ray never meets glass and
     # the walk degenerates to one closest-hit + t^2<=r2 compare == plain
     # opaque occlusion.  So: one cheap UNCAPPED any-hit against the
     # refractive members only (refr_ray_hit_w — uncapped because the
@@ -604,46 +535,9 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
                         opaque_act = None
 
     if not (scene.has_refractive and scene.refractions_on):
-        shadow_fn = getattr(trace_fn, "shadow_occluded", None)
-        if shadow_fn is not None and point.ndim == 2:
-            # Shadow-structured binning: per-light direction intervals by
-            # interval arithmetic + beyond-the-light cluster culling (see
-            # pallas_trace.bin_shadow_rays).  |shadow_o - point| <= ~bias
-            # (the shading normal is a convex combination of unit normals),
-            # so 2*bias slack keeps the direction enclosure conservative.
-            occluded = shadow_fn(
-                jax.lax.stop_gradient(shadow_o_px),
-                jax.lax.stop_gradient(light_dir),
-                jax.lax.stop_gradient(r2),
-                light_positions,
-                act_lr,
-                2.0 * shadow_bias,
-            )
-            return ~occluded, light_dir, r2
-        occluded_fn = getattr(trace_fn, "occluded", None)
-        apex_fn = getattr(trace_fn, "shadow_apex", None)
-        if occluded_fn is not None:
-            # Any-hit occlusion kernel: no closest-hit bookkeeping, early
-            # exit per tile once every lane is resolved.  Semantically
-            # identical to the closest-hit comparison below: a closest hit
-            # with t^2 <= r2 exists iff ANY hit with t^2 <= r2 exists.
-            occluded = occluded_fn(shadow_o, d, r2_flat, act)
-        elif apex_fn is not None and point.ndim == 2:
-            # Light-side shaft binning (pallas_trace.bin_rays apex mode):
-            # same kernel and lanes, occlusion-exact, ~35 % fewer
-            # (tile x cluster) pairs than the generic frustum.
-            occluded = apex_fn(
-                jax.lax.stop_gradient(shadow_o_px),
-                jax.lax.stop_gradient(light_dir),
-                jax.lax.stop_gradient(r2),
-                light_positions,
-                act_lr,
-                2.0 * shadow_bias,
-            ).reshape(-1)
-        else:
-            sh = trace_fn(shadow_o, d, act)
-            sh_t = jax.lax.stop_gradient(sh.t)
-            occluded = sh.valid & (sh_t * sh_t <= r2_flat)
+        sh = trace_fn(shadow_o, d, act)
+        sh_t = jax.lax.stop_gradient(sh.t)
+        occluded = sh.valid & (sh_t * sh_t <= r2_flat)
         occluded = checkpoint_name(occluded, "trace_out")
         return ~occluded.reshape(r2.shape), light_dir, r2
 
@@ -657,12 +551,9 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     # bent segment) is compared against the original light distance, as the
     # reference does.
     #
-    # Perf (measured, 11-01-scene8): the marching step needs only the hit
-    # triangle's face normal + material class + ior.  Fetching those as
-    # per-vertex/per-material dynamic gathers (7 small-table [T]->[lanes]
-    # gathers) hits the XLA:TPU 1-row gather pathology (~15 ms per gather
-    # per 2 M lanes, see pallas_segsum.packed_gather_ranked_fused) — it made
-    # this loop ~30 s of a 31.5 s frame.  Instead all marching constants
+    # The marching step needs only the hit triangle's face normal +
+    # material class + ior.  Instead of per-vertex/per-material dynamic
+    # gathers (7 small-table [T]->[lanes] gathers), all marching constants
     # ride ONE [5, T] f32 column gather (face_n | is_refr | ior), and
     # iterations past the first run under a lax.cond so chunks/bounces whose
     # shadow rays never enter glass skip the trace entirely.
@@ -684,10 +575,9 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
             )
         )  # [5, T]
 
-    def march_step(carry, near=False):
+    def march_step(carry):
         o, d, alive, last_valid, last_t = carry
-        near_fn = getattr(trace_fn, "near", None) if near else None
-        sh = (near_fn or trace_fn)(o, d, alive)
+        sh = trace_fn(o, d, alive)
         sh_t = jax.lax.stop_gradient(sh.t)
         tri = jnp.maximum(jax.lax.stop_gradient(sh.tri), 0)
         hit_valid = sh.valid & alive
@@ -739,14 +629,6 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
         return tuple(x[pos] for x in carry_c)
 
     step_fn = compacted_march_step if _SHADOW_COMPACT else march_step
-    # Bent continuations start INSIDE glass and exit it within a short
-    # distance — the near-first bounded-exit walk settles those tiles in
-    # a few clusters where the Morton-order walk runs to full count
-    # (same hits up to cross-cluster exact-t tie order).  A/B flag.
-    if _MARCH_NEAR and not _SHADOW_COMPACT:
-        step_fn_cont = functools.partial(march_step, near=True)
-    else:
-        step_fn_cont = step_fn
 
     # Experiment knob: cap the bent-continuation depth (phase attribution
     # of the first trace vs the re-traces).  Semantics-changing — never
@@ -767,13 +649,13 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
             # sits under a cond.  Python loop (not scan): trace_fn's
             # binning tiers may specialize per call site; depth is tiny.
             carry = jax.lax.cond(
-                jnp.any(carry[2]), step_fn_cont, lambda c: c, carry
+                jnp.any(carry[2]), step_fn, lambda c: c, carry
             )
         *_, last_valid, last_t = carry
         return last_valid, last_t
 
     R_flat = act.shape[0]
-    BLK = 1024  # pixel-tile quantum (renderer.TILE_H * TILE_W)
+    BLK = 1024  # narrowing block: a multiple of the pixel tile (TILE_RAYS)
     n_blk = R_flat // BLK if R_flat % BLK == 0 else 0
     cap_blk = -(-n_blk // 4)
     if os.environ.get("CRT_MARCH_NARROW", "1") == "0":  # A/B knob
@@ -782,14 +664,12 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
         # TILE-NARROW MARCH: every marching survivor is a subset of the
         # initial glass-suspect set (cont ⊆ alive at every step), and the
         # glass-suspect lanes live in SPATIALLY COHERENT pixel regions —
-        # so the whole walk (first trace + all cond re-traces, the
-        # 91 %-of-shadow-cost term) runs over just the LIVE 1024-lane
-        # blocks, gathered contiguously into a cap_blk-block buffer.
-        # Narrowing at BLOCK granularity is the load-bearing choice: the
-        # per-LANE version (jnp.nonzero + scatter over the 4.19M-lane
-        # wavefront, ~78 ms per bounce) measured 1.9 s of pure overhead
-        # at 540p, while the block index build is a 4096-element nonzero
-        # and the gathers move whole contiguous blocks (and pixel-tile
+        # so the whole walk (first trace + all cond re-traces) runs over
+        # just the LIVE 1024-lane blocks, gathered contiguously into a
+        # cap_blk-block buffer.  Narrowing at BLOCK granularity keeps the
+        # index build a small nonzero over blocks (a per-LANE version
+        # needs a nonzero + scatter over the whole wavefront), and the
+        # gathers move whole contiguous blocks (and pixel-tile
         # coherence — what the binning frustums feed on — is preserved
         # exactly).  Overflow (> cap_blk live blocks) falls back to the
         # full-width walk under a cond.
@@ -898,23 +778,7 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, rng, active,
     if depth > settings.max_ray_depth:  # crt_renderer.cpp:47-48
         return black, rng
 
-    # NOTE: a Morton/octant ray-reordering variant exists
-    # (pallas .reordered) but measured 17x SLOWER on bounce-heavy scenes —
-    # two 2M-element XLA argsorts per trace dwarf the frustum-coherence win.
-    # Bounce wavefronts keep pixel order.
-    level_trace = trace_fn
-
-    # Row-emitting trace (Pallas backend): the kernel hands back the
-    # winning triangle's packed rows, skipping hit_attributes' 2 M-index
-    # gather (~6 ms/frame).  Other backends take the gather path.
-    kernel_rows = None
-    if rows_fn is None and hasattr(trace_fn, "with_rows"):
-        hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
-        # Saved under the remat policy: without this the backward's
-        # recompute would re-launch the trace kernel to rebuild the rows.
-        kernel_rows = checkpoint_name(kernel_rows, "trace_out")
-    else:
-        hit = level_trace(origins, dirs, active)
+    hit = trace_fn(origins, dirs, active)
     # Remat seam (see hit_attributes): traces are the expensive,
     # non-differentiable part of the forward — name their outputs so a
     # save_only_these_names("packed_rows", "trace_out") checkpoint policy
@@ -924,8 +788,7 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, rng, active,
         t=checkpoint_name(hit.t, "trace_out"),
         tri=checkpoint_name(hit.tri, "trace_out"),
     )
-    attrs = hit_attributes(scene, origins, dirs, hit, rows_fn=rows_fn,
-                           kernel_rows=kernel_rows)
+    attrs = hit_attributes(scene, origins, dirs, hit, rows_fn=rows_fn)
 
     if not scene.has_materials:
         # Legacy material-less scenes (07-*): the era shaded a gray
@@ -1044,16 +907,15 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, rng, active,
         elif K > 1:
             # lax.scan shares ONE compiled child-recursion program across
             # samples: graph size drops from (K+2)^depth to 3^depth branches
-            # (the 15-01 GI scene compiles minutes faster; identical output —
-            # the RNG state is the scan carry, preserving the reference's
-            # per-pixel draw order).
+            # (identical output — the RNG state is the scan carry,
+            # preserving the reference's per-pixel draw order).
             (diffuse_color, rng), _ = jax.lax.scan(
                 one_gi_sample, (diffuse_color, rng), None, length=K
             )
 
     if scene.num_lights > 0:
         illuminated, light_dir, r2 = _occlusion_masks(
-            scene, level_trace, point, normal, scene.light_position,
+            scene, trace_fn, point, normal, scene.light_position,
             settings.shadow_bias, settings.no_shadows,
             shadow_active=active & is_diffuse,
             max_ray_depth=settings.max_ray_depth,

@@ -17,7 +17,7 @@ iteration over a bank-structured ray pool.  Two schedules
     bookkeeping.  Default for GI scenes, whose cost is ~linear in pool
     width; makes the EXACT f^D-wide Whitted tree affordable.
 
-Pool layout — the TPU-native trick.  The pool is B *banks* of R lanes, and
+Pool layout — the wavefront trick.  The pool is B *banks* of R lanes, and
 slot (b, p) permanently belongs to pixel p.  Consequences:
 
   - path radiance accumulates ELEMENTWISE into a [B, R, 3] buffer and the
@@ -25,9 +25,9 @@ slot (b, p) permanently belongs to pixel p.  Consequences:
   - spawned children (the refractive Fresnel pair's second ray, the K
     diffuse-GI samples) only ever move along the tiny bank axis: free-slot
     matching is a cumsum + one-hot product over [B, B, R] — no argsort
-    compaction of the full wavefront (measured 17x slower when tried);
+    compaction of the full wavefront;
   - each bank preserves the renderer's pixel-tile ray order, so the Pallas
-    trace binning sees the same coherent 32x32 blocks as the primary pass.
+    trace binning sees the same coherent pixel tiles as the primary pass.
 
 Path weights: a lane carries throughput = the product of per-bounce factors
 (albedo for mirrors incl. the Hadamard-y compat quirk, fresnel /
@@ -84,10 +84,9 @@ _PI = math.pi
 # continuations, Fresnel-pair children) are SCATTERED through the pixel
 # tiles, so binning's tile_any skip drops nothing; packing them first turns
 # sparsity into dead tiles.  Trace-only — the Hit is un-permuted before
-# shading, so downstream masking semantics are untouched.  Round-5 A/Bs
-# were session-noisy (pool-only −17 % in one session, +12 % on top of the
-# march split in another — the full-width permute gathers are the risk);
-# default OFF, opt-in flag.  Bit-exact (tests/test_lane_compact.py).
+# shading, so downstream masking semantics are untouched.  The full-width
+# permute gathers are the cost; not yet measured on the GPU, so default
+# OFF, opt-in flag.  Bit-exact (tests/test_lane_compact.py).
 _POOL_COMPACT = os.environ.get("CRT_POOL_COMPACT", "0") != "0"
 
 
@@ -166,8 +165,8 @@ def _place_children(pool_fields, dead, cand_act, cand_fields, dropped):
 
     # Exact select-accumulation over source banks: at most one source bank
     # matches a (dst, column) slot, so iterating i with where-overwrite is
-    # exact for EVERY dtype.  (An einsum here would be a dot: bf16 MXU
-    # passes for f32 fields by default, and integer dots may lower through
+    # exact for EVERY dtype.  (An einsum here would be a dot: TF32
+    # for f32 fields by default, and integer dots may lower through
     # float — either silently corrupts child ray data / uint32 PCG states.
     # B is tiny, so B selects are cheap and fuse.)
     out = []
@@ -585,8 +584,7 @@ def shade_wavefront_iter_with_stats(
     if use_grow:
         # Unrolled bounce loop with a growing pool: D+1 distinct compiled
         # bodies (vs the scan's one) buy skipping every dead bank's trace
-        # lanes and bookkeeping — measured ~linear-in-banks cost on GI
-        # scenes (docs/PERFORMANCE.md round 3).
+        # lanes and bookkeeping — GI cost is ~linear in pool banks.
         pool = init_pool(1)
         L = 1
         for b in range(D + 1):

@@ -33,9 +33,8 @@ from crt_tpu.scene.types import (
 
 def _grad_gather(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """Gather rows of a small differentiable table: [X, C][idx] -> [R, C]
-    (or [X][idx] -> [R]) whose VJP is the MXU segment-matmul instead of a
-    serialized 2M-update XLA scatter (see crt_tpu.ops.pallas_segsum)."""
-    from crt_tpu.ops.pallas_segsum import packed_gather
+    (or [X][idx] -> [R]), shard_map-safe (see crt_tpu.ops.gather)."""
+    from crt_tpu.ops.gather import packed_gather
 
     if idx.ndim != 1:
         return table[idx]

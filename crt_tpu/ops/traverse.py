@@ -10,7 +10,7 @@ intersects the (padded) leaf triangle block, or pushes the two children.
 All memory access is gathers over the flat AccelTree SoA — no pointers, no
 divergence: inactive rays (empty stack) simply mask out.  This backend is
 fully shape-static and differentiable-by-recomputation like the brute-force
-one; the Pallas kernel in pallas_trace.py is the faster TPU path.
+one; the Pallas kernel in pallas_trace.py is the faster GPU path.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def _leaf_intersect(tri: TriangleGather, leaf_tri_ids, o, d, best_t, best_tri):
     face_ok = front | ~bf
     t = opd / jnp.where(not_parallel, nd, 1.0)
 
-    # HIGHEST: TPU einsum defaults to bf16 MXU passes — edge-test
+    # HIGHEST: a default-precision f32 einsum may run in TF32 — edge-test
     # cancellation needs full f32 (see vecmath.rotate_rows)
     hi = jax.lax.Precision.HIGHEST
     md = jnp.einsum("rlij,rj->rli", m, d, precision=hi)  # [R, L, 3]

@@ -110,10 +110,11 @@ def rotate_rows(v: jnp.ndarray, m: jnp.ndarray) -> jnp.ndarray:
 
     v: [..., 3], m: [3, 3] (or broadcastable batch of matrices [..., 3, 3]).
 
-    Written elementwise, NOT as ``v @ m``: TPU matmuls run the MXU at bf16
-    by default, which put ~4e-3 relative error on every camera ray
-    direction (measured: ~1.5% of 09-01's pixels off by >1/255 via shifted
-    hit points and flipped shared-edge winners).  Elementwise f32 FMAs are
+    Written elementwise, NOT as ``v @ m``: a default-precision f32 matmul
+    may run in reduced precision (TF32 on the GPU); a reduced-precision
+    rotation put ~4e-3 relative error on every camera ray direction
+    (~1.5% of 09-01's pixels off by >1/255 via shifted hit points and
+    flipped shared-edge winners).  Elementwise f32 FMAs are
     exact and fuse into the surrounding ops anyway.
     """
     if m.ndim == 2:

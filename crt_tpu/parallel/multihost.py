@@ -1,8 +1,8 @@
 """Multi-host runtime: distributed init, render dispatch, gather, recovery.
 
 The reference is a single process whose only "communication layer" is one
-mutex-guarded bucket queue (crt_renderer.cpp:176-191).  The TPU-native
-equivalent for pod slices spanning hosts:
+mutex-guarded bucket queue (crt_renderer.cpp:176-191).  The JAX
+equivalent for device meshes spanning hosts:
 
   - ``initialize()`` wraps ``jax.distributed.initialize`` (coordinator
     address/process id/count from env or args) so every host joins one JAX

@@ -1,7 +1,7 @@
 """Multi-chip scale-out: rays sharded over a device mesh.
 
 The reference's only parallelism is a bucket queue feeding OS threads
-(crt_renderer.cpp:157-199).  The TPU-native equivalent: the pixel wavefront
+(crt_renderer.cpp:157-199).  The JAX equivalent: the pixel wavefront
 is sharded across a ``jax.sharding.Mesh`` with ``shard_map`` — each device
 renders a contiguous block of pixel rows against a *replicated* scene (course
 scenes are <= 4k triangles: replication is free), and scene-*parameter*

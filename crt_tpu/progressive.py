@@ -15,7 +15,7 @@ bit-exact the single-shot ``render_image``.
 
 Checkpoint/resume: the running sum and pass counter are orbax-checkpointed
 every ``checkpoint_every`` passes — an interrupted accumulation (preemption
-being the normal failure mode of long TPU jobs) resumes at the last saved
+being the normal failure mode of long accelerator jobs) resumes at the last saved
 pass with identical output, because pass k's image depends only on k.  The
 same mechanism serves as the long-render failure-recovery story alongside
 crt_tpu.parallel.multihost's row-block re-dispatch.

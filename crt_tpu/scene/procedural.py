@@ -100,6 +100,94 @@ def make_test_scene(
     return scene_from_dict(data)
 
 
+def course_benchmark_dict(
+    width: int = 1920,
+    height: int = 1080,
+    seed: int = 0,
+) -> dict:
+    """Scene dict with the shape of the upstream course's benchmark frame.
+
+    The course's optimisation report times one scene (BASELINE.md): 4,014
+    triangles in 2 objects, 4 point lights, 1 diffuse material,
+    1920x1080.  Its file is not part of this repository, so this builds a
+    stand-in of the same shape from ``seed``: a 2-triangle floor plus a
+    closed, seeded, radially displaced torus of 34 x 59 quads (4,012
+    triangles), smooth-shaded, lit by 4 point lights, shadows on.
+    """
+    rng = np.random.default_rng(seed)
+    n_u, n_v = 59, 34  # around the ring, around the tube
+    u = 2.0 * np.pi * np.arange(n_u) / n_u
+    v = 2.0 * np.pi * np.arange(n_v) / n_v
+    uu, vv = np.meshgrid(u, v, indexing="ij")  # [n_u, n_v]
+    # smooth seeded bumps: a few random low-order harmonics on the tube
+    r_tube = np.full(uu.shape, 1.0)
+    for _ in range(4):
+        ku, kv = rng.integers(1, 6), rng.integers(1, 4)
+        ph_u, ph_v = rng.uniform(0, 2 * np.pi, 2)
+        r_tube += 0.08 * np.sin(ku * uu + ph_u) * np.cos(kv * vv + ph_v)
+    ring = 2.6 + r_tube * np.cos(vv)
+    pts = np.stack(
+        [ring * np.cos(uu), r_tube * np.sin(vv), ring * np.sin(uu)], -1
+    )
+    tilt = np.radians(35.0)  # lean the ring toward the camera
+    rot = np.array([[1, 0, 0],
+                    [0, np.cos(tilt), -np.sin(tilt)],
+                    [0, np.sin(tilt), np.cos(tilt)]])
+    pts = pts @ rot.T + np.array([0.0, 0.3, -7.0])
+    verts = pts.reshape(-1, 3).astype(np.float32)
+
+    iu, iv = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    a = iu * n_v + iv
+    b = ((iu + 1) % n_u) * n_v + iv
+    c = ((iu + 1) % n_u) * n_v + (iv + 1) % n_v
+    d = iu * n_v + (iv + 1) % n_v
+    tris = np.stack([np.stack([a, c, b], -1), np.stack([a, d, c], -1)], 2)
+    tris = tris.reshape(-1, 3).astype(np.int64)  # 2 * n_u * n_v = 4,012
+
+    return {
+        "settings": {
+            "background_color": [0.0, 0.5, 0.0],
+            "image_settings": {"width": width, "height": height},
+        },
+        "camera": {
+            "matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1],
+            "position": [0, 0.5, 0],
+        },
+        "lights": [
+            {"intensity": 900, "position": [-5.0, 8.0, -2.0]},
+            {"intensity": 700, "position": [6.0, 7.0, -4.0]},
+            {"intensity": 500, "position": [0.0, 9.0, -12.0]},
+            {"intensity": 400, "position": [2.0, 3.0, 1.0]},
+        ],
+        "materials": [
+            {"type": "diffuse", "albedo": [0.8, 0.75, 0.7],
+             "smooth_shading": True},
+        ],
+        "objects": [
+            {  # floor
+                "material_index": 0,
+                "vertices": [-40, -3, 20, 40, -3, 20, -40, -3, -60,
+                             40, -3, -60],
+                "triangles": [0, 1, 2, 3, 2, 1],
+            },
+            {
+                "material_index": 0,
+                "vertices": verts.reshape(-1).tolist(),
+                "triangles": tris.reshape(-1).tolist(),
+            },
+        ],
+    }
+
+
+def make_course_benchmark_scene(
+    width: int = 1920,
+    height: int = 1080,
+    seed: int = 0,
+) -> Scene:
+    """The course-benchmark-shaped frame (see course_benchmark_dict)."""
+    return scene_from_dict(course_benchmark_dict(width, height, seed))
+
+
 def make_big_scene(
     num_triangles: int = 1_000_000,
     width: int = 1920,
@@ -109,8 +197,8 @@ def make_big_scene(
 ) -> Scene:
     """A large random-triangle-soup scene built directly as SoA arrays.
 
-    For >VMEM-scale benchmarks (the HBM-streaming intersection path): the
-    dict/JSON loader path is too slow at 10^6 triangles, so geometry is
+    For large-scene benchmarks (S4 in chip_smoke.py): the dict/JSON
+    loader path is too slow at 10^6 triangles, so geometry is
     generated vectorized and the Scene pytree assembled directly; the
     acceleration tree uses the native C++ builder.
     """

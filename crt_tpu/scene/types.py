@@ -9,7 +9,7 @@ the full ray wavefront, and so gradients flow to vertices / normals / albedo /
 lights / camera with no special casing.
 
 Static metadata (resolution, feature flags) lives in pytree *meta* fields so
-JIT specializes per scene shape/feature combo — the TPU analog of the
+JIT specializes per scene shape/feature combo — the compiled analog of the
 reference's compile-time material switch.
 """
 
@@ -204,11 +204,8 @@ _SETTINGS_FIELDS = (
     "wavefront_banks",
     "wavefront_sched",
     "remat_shading",
-    "compact_bounces",
-    "shadow_tile_rays",
     "aov",
     "fused_light_vjp",
-    "stream_shadow_k",
 )
 
 
@@ -237,13 +234,11 @@ class RenderSettings:
     HEAD exactly.  The default (all off) implements the intended behavior.
 
     ``backend`` selects the intersection engine:
-      - "auto":  Pallas on TPU (VMEM-resident tables; switches to the
-        HBM-streaming variant beyond ~200k triangles), brute force elsewhere
-      - "bruteforce": MXU-batched all-pairs intersection
+      - "auto":  "pallas" on the GPU, "bruteforce" on the CPU (see
+        renderer.resolve_backend)
+      - "bruteforce": batched all-pairs intersection (the plain reference)
       - "tree":  batched lax.while_loop KD traversal
-      - "pallas": Pallas tile-binning cluster kernel (TPU fast path)
-      - "pallas_stream": two-level supercluster pair-list kernel streaming
-        tables HBM->VMEM (scenes beyond VMEM capacity)
+      - "pallas": tile-binned cluster-walk kernel (Pallas, Triton route)
     """
 
     max_ray_depth: int = DEFAULT_MAX_RAY_DEPTH
@@ -258,7 +253,7 @@ class RenderSettings:
     compat_hadamard_y: bool = False
     backend: str = "auto"
     # Render the wavefront in sequential chunks of ~this many pixels
-    # (0 = whole frame at once).  The TPU bucket renderer: bounds peak HBM
+    # (0 = whole frame at once).  The bucket renderer: bounds peak device memory
     # for deep recursion (GI) the way the reference's bucket queue bounded
     # nothing but cache footprint (crt_renderer.cpp:157-199).
     chunk_pixels: int = 0
@@ -286,37 +281,16 @@ class RenderSettings:
     # outputs + packed hit rows as residuals and recomputes the elementwise
     # shading chain (identity for forward-only renders; numerics unchanged).
     remat_shading: bool = False
-    # Route active-masked bounce traces (Pallas backend) through the
-    # live-tile compacted launch — sparse wavefronts skip dead tiles'
-    # grid steps at the cost of 4 compiled grid tiers per call site.
-    # Bit-identical output (tests/test_shadow_binning.py).
-    compact_bounces: bool = False
-    # Tile size for the apex-binned shadow trace only (0 = the primary
-    # trace's tuned TILE_RAYS).  Shadow wavefronts are sparse, so smaller
-    # tiles tighten shaft frustums without touching the dense primary
-    # trace.  Occlusion output is exact at any size.  Honored by the
-    # 'pallas' backend only; other backends have no shadow-specific tile
-    # grid and ignore it (renderer.make_trace_fn warns when set).
-    shadow_tile_rays: int = 0
     # Hand-written VJP for the direct-lighting radiance sum (ops/shade.py
     # light_lum): the backward recomputes the per-light chain analytically
     # from (point, normal) instead of storing the autodiff residuals of the
     # [Ll, R](,3) light tensors.  Forward values are bit-identical (same op
     # order); gradients match autodiff to f32 roundoff
-    # (tests/test_fused_light.py).  Round-4 A/B (tools/exp_r4_ab.py,
-    # 14-01): ~4.5 % SLOWER end-to-end than AD's backward (fwd+bwd 29.75
-    # vs 28.41 ms) — the residual-free recompute costs more than the
-    # residual HBM it saves.  Kept as a tested opt-in; the lum-sum-first
-    # forward formulation (3x less HBM) is used either way.
+    # (tests/test_fused_light.py).  Off by default: on the previous
+    # accelerator the residual-free recompute cost more than the residual
+    # memory traffic it saved; not yet measured on the GPU.  The
+    # lum-sum-first forward formulation is used either way.
     fused_light_vjp: bool = False
-    # Two-phase shadow resolution for the HBM-streaming backend
-    # (ops/pallas_stream.occluded_stream_twophase): phase 1 walks each
-    # tile's K nearest superclusters, phase 2 re-traces the surviving
-    # lanes COMPACTED per light (the measured win is packing away the
-    # ~2/3 inactive shadow lanes; 1M-tri frame 3.69 -> 2.28 s).  0
-    # disables (single phase); CRT_STREAM_SHADOW_K env overrides for
-    # experiments.
-    stream_shadow_k: int = 2
     # Auxiliary output pass instead of the beauty render: "" (beauty),
     # "bary" (the 09-01 course visualization, crt_intersection.cpp:73-74),
     # "normal", "depth", "tri_id", "albedo".  First-class so golden

@@ -70,7 +70,7 @@ class CameraRig(NamedTuple):
                         r = r.at[i, j].add(r[i, k] * m[k, j])
             return self._replace(rotation=r)
         # rows of the rotation are vectors: compose via the exact-f32
-        # rotate_rows (TPU `@` defaults to bf16 MXU passes)
+        # rotate_rows (a default-precision `@` may run in TF32)
         return self._replace(rotation=vecmath.rotate_rows(self.rotation, m))
 
     def pan(self, angle, **kw) -> "CameraRig":

@@ -1,4 +1,4 @@
-"""Numerical hygiene checks — the TPU answer to sanitizers.
+"""Numerical hygiene checks — the JAX answer to sanitizers.
 
 The reference has no race detection or sanitizers (SURVEY.md §5); its
 thread-safety is by construction.  Value-semantics JAX removes data races by
@@ -8,8 +8,8 @@ construction too, so the meaningful checks here are numerical:
     (jax_debug_nans) — catches divides-by-zero or bad normals at their
     source op instead of as black pixels
   - ``check_deterministic``: run a render twice and demand bit-identical
-    output (XLA reductions are deterministic on TPU; this guards against
-    accidentally introducing non-deterministic collectives or donation bugs)
+    output (guards against non-deterministic collectives, atomics or
+    donation bugs)
   - ``check_grads_finite``: backward-pass NaN scan over all trainable
     parameter groups
 """

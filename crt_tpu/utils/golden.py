@@ -57,7 +57,7 @@ HEAD_GOLDEN_CASES = [
 
 # Scenes with no committed golden — rendered as smoke tests only.
 # 15-01 scene2: the GI showcase.  With scan-based GI sampling it renders
-# whole-frame on one v5e chip (Cornell-box color bleeding verified
+# whole-frame on one accelerator (Cornell-box color bleeding verified
 # visually); the reference repo has no 15-01 PNG to compare against.
 SMOKE_CASES = [
     ("15-01-conclusion/scene0.crtscene", None, {}),

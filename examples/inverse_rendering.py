@@ -8,7 +8,8 @@ shading.  Saves before/target/after renders as PNG.
 Usage:
     python examples/inverse_rendering.py [outdir] [--steps N] [--scene path]
 
-Runs on whatever backend jax picks (TPU here; forced-CPU works too).
+Runs on whatever backend jax picks (the GPU where there is one; forced-CPU
+works too).
 """
 
 from __future__ import annotations

@@ -1,4 +1,9 @@
-"""Build the native helper library: g++ -O3 -shared -> libcrt_accel.so."""
+"""Build the native helper library: g++ -O3 -shared -> libcrt_accel.so.
+
+The library is not committed: it is built from the sources here at first
+use (crt_tpu.scene.native_accel, crt_tpu.io.native_ppm) or by running this
+script, with portable flags so a build is valid on any x86-64 host.
+"""
 
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ def build(force: bool = False) -> str:
     ):
         return OUT
     cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
         *SRCS, "-o", OUT,
     ]
     subprocess.run(cmd, check=True)

@@ -1,6 +1,6 @@
 // Native host-side scene compiler: midpoint-split KD/AABB tree builder.
 //
-// TPU-native framework counterpart of the reference's load-time tree build
+// crt_tpu counterpart of the reference's load-time tree build
 // (reference src/core/crt_acceleration_tree.cpp:31-106, invoked from
 // crt_json.cpp:606).  The device consumes only flat SoA arrays, so this
 // builder produces exactly the structures crt_tpu.scene.accel flattens:

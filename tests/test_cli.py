@@ -13,7 +13,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def run_cli(args, cwd=REPO):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CRT_TPU_FORCE_CPU"] = "1"
     return subprocess.run(
         [sys.executable, "-m", "crt_tpu.frontend.cli", *args],
         capture_output=True, text=True, cwd=cwd, env=env, timeout=240,
@@ -64,10 +63,16 @@ def test_cli_aov_flag(tmp_path):
     import subprocess
     import sys
 
+    import json
+
+    from crt_tpu.scene.procedural import course_benchmark_dict
+
+    scene_path = tmp_path / "seeded.crtscene"
+    scene_path.write_text(json.dumps(course_benchmark_dict(32, 18, seed=4)))
     out = tmp_path / "bary.ppm"
     r = subprocess.run(
         [sys.executable, "-m", "crt_tpu.frontend.cli",
-         "/root/reference/scenes/09-01-barycentric-coordinates/scene1.crtscene",
+         str(scene_path),
          str(out), "--aov", "bary", "--width", "64", "--height", "36"],
         capture_output=True, text=True,
         env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},

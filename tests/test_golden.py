@@ -3,8 +3,8 @@
 Full-res renders of the course scenes small enough for the CPU test backend
 (≤ ~10 triangles, no deep refractive branching).  Settings profiles come
 from crt_tpu.utils.golden so CI stays in sync with the per-golden reference
-bug archaeology; the complete sweep incl. 4k-triangle scenes runs on TPU
-via tools/golden_check.py.
+bug archaeology; the complete sweep incl. 4k-triangle scenes runs on the
+GPU via tools/golden_check.py.
 """
 
 import numpy as np
@@ -21,16 +21,16 @@ _ALL_CASES = {
     )
 }
 
-# (golden name, frac threshold).  Thresholds track the published TPU sweep
-# (99.44-100 %) with slack for CPU-vs-TPU f32 rounding; 12-01-scene3 carries
+# (golden name, frac threshold).  Thresholds track the last full sweep
+# (99.44-100 %) with slack for cross-device f32 rounding; 12-01-scene3 carries
 # the documented irreducible stb-vs-PIL JPEG decode residual.
 CPU_CASES = [
     ("07-01-scene-scene0", 0.999),
     ("07-01-scene-scene1", 0.999),  # era half-lambert (ERA07_LIGHT_DIR)
     ("07-01-scene-scene2", 0.999),
     ("07-01-scene-scene3", 0.999),
-    # scene4 (4,012 tris at 1080p) is TPU-sweep only: ~2 min brute force on
-    # the CPU test backend.  TPU sweep: 1.0000.
+    # scene4 (4,012 tris at 1080p) is full-sweep only: ~2 min brute force
+    # on the CPU test backend.  Full sweep: 1.0000.
     ("09-01-barycentric-coordinates-scene0", 0.999),
     ("08-01-light-scene0", 0.995),
     ("12-01-textures-scene0", 0.995),

@@ -207,8 +207,7 @@ def test_remat_shading_gradients_bit_identical():
 
 def test_remat_shading_pallas_rows_path():
     """Same remat-parity demand through the Pallas trace (interpret mode),
-    whose with_rows emit + packed_rows_from_kernel custom_vjp is the TPU
-    production path under jax.checkpoint."""
+    the GPU production path, under jax.checkpoint."""
     from crt_tpu.ops.pallas_trace import make_pallas_trace_fn
     from crt_tpu.scene.procedural import make_test_scene
 

@@ -18,15 +18,15 @@ import pytest
 
 from crt_tpu.io import jpeg_stb
 
-DRAGON = "/root/reference/scenes/12-01-textures/textures/dragon.jpg"
+DRAGON = "12-01-textures/textures/dragon.jpg"  # under the scenes corpus
 
 # sha256 of the decode verified bit-exact against the reference golden
 # via tools/oracle_ref_f32.py (see module docstring).
 DRAGON_SHA = "5b79ed098b632aefddea5c4f754b43242168f33d55f9197df7678d14498a5eab"
 
 
-def test_dragon_checksum():
-    out = jpeg_stb.decode_file(DRAGON)
+def test_dragon_checksum(scenes_dir):
+    out = jpeg_stb.decode_file(str(scenes_dir / DRAGON))
     assert out.shape == (360, 540, 3) and out.dtype == np.uint8
     assert hashlib.sha256(out.tobytes()).hexdigest() == DRAGON_SHA
 
@@ -34,11 +34,13 @@ def test_dragon_checksum():
 def test_dragon_close_to_pil():
     """stb and libjpeg-turbo agree within a few codes (different integer
     IDCT/color rounding) — catches gross decoder bugs independently of the
-    checksum."""
+    checksum.  Decodes a dragon-sized (540x360, 4:2:0) JPEG of sprite-like
+    content encoded here."""
     from PIL import Image
 
-    ours = jpeg_stb.decode_file(DRAGON).astype(np.int32)
-    pil = np.asarray(Image.open(DRAGON).convert("RGB"), np.int32)
+    data = _encode(_sprite_like(360, 540), quality=90)
+    ours = jpeg_stb.decode(data).astype(np.int32)
+    pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.int32)
     d = np.abs(ours - pil)
     assert d.max() <= 3
     assert (d != 0).mean() < 0.05
@@ -78,6 +80,23 @@ def test_subsampling_modes_vs_pil(subsampling, maxdiff):
     # uses +1/+2), so ±2 codes on alternating columns is expected skew.
     assert d.max() <= maxdiff, f"max diff {d.max()}"
     assert (d > 2).mean() < 0.02
+
+
+def _sprite_like(h, w, seed=1):
+    """Shaded shapes on a dark flat background with mild sensor noise —
+    the content class of the course's dragon texture."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w, 3), [20.0, 24.0, 30.0], np.float32)
+    for _ in range(8):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        ry, rx = rng.uniform(15, 70, 2)
+        inside = ((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2 < 1
+        shade = rng.uniform(60, 230, 3) * (
+            0.75 + 0.25 * np.cos(x / 9.0 + y / 13.0))[..., None]
+        img = np.where(inside[..., None], shade, img)
+    img += rng.normal(0, 2, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def test_grayscale():
@@ -126,8 +145,7 @@ def test_loader_fallback_for_progressive(tmp_path):
 
 
 def test_truncated_raises():
-    with open(DRAGON, "rb") as f:
-        data = f.read()
+    data = _encode(_sprite_like(360, 540), quality=90)
     with pytest.raises(jpeg_stb.CorruptJPEG):
         jpeg_stb.decode(data[:2])
     # truncated entropy data should still decode (zero-fed), not crash

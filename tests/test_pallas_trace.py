@@ -1,4 +1,6 @@
-"""Pallas tile-binning kernel (interpret mode on CPU) vs brute force."""
+"""Pallas cluster-walk kernel (Triton route, interpret mode on CPU) vs the
+plain all-pairs reference, plus the wrapper's binning, padding and the
+``auto`` backend choice."""
 
 import numpy as np
 import jax
@@ -6,7 +8,9 @@ import jax.numpy as jnp
 import pytest
 
 from crt_tpu import RenderSettings, render_image
+from crt_tpu.ops import camera as camera_ops
 from crt_tpu.ops import intersect
+from crt_tpu.ops import pallas_trace as pt
 from crt_tpu.ops.pallas_trace import (
     bin_rays,
     build_cluster_tables,
@@ -21,24 +25,49 @@ def scene():
                            with_reflective=False)
 
 
-def test_binning_covers_bruteforce_hits(scene):
-    """Every ray's true hit cluster must be in its tile's compacted list."""
-    from crt_tpu.ops import camera as camera_ops
-
-    tables = build_cluster_tables(scene)
+def _camera_rays(scene):
     o, d = camera_ops.generate_rays(
         scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
         scene.width, scene.height,
     )
-    from crt_tpu.ops.pallas_trace import TILE_RAYS
+    return o.reshape(-1, 3), d.reshape(-1, 3)
 
-    o = np.asarray(o.reshape(-1, 3))
-    d = np.asarray(d.reshape(-1, 3))
+
+def _bruteforce(scene, o, d):
+    td = intersect.build_triangle_data(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material],
+    )
+    return intersect.closest_hit_bruteforce(td, o, d)
+
+
+def _assert_hits_match(ref, got, lanes=None):
+    bt, bi = np.asarray(ref.t), np.asarray(ref.tri)
+    pt_, pi = np.asarray(got.t), np.asarray(got.tri)
+    if lanes is not None:
+        bt, bi, pt_, pi = bt[lanes], bi[lanes], pt_[lanes], pi[lanes]
+    assert ((bi < 0) == (pi < 0)).all()
+    hits = bi >= 0
+    np.testing.assert_allclose(pt_[hits], bt[hits], rtol=1e-5, atol=1e-6)
+    # Disagreeing ids are exact-distance ties (shared-edge hits) where the
+    # reference's first-wins rule depends on traversal order; verify ties.
+    dis = hits & (pi != bi)
+    assert dis.mean() < 0.005
+    np.testing.assert_allclose(pt_[dis], bt[dis], rtol=1e-6, atol=1e-7)
+
+
+def test_binning_covers_bruteforce_hits(scene):
+    """Every ray's true hit cluster must be in its tile's compacted list."""
+    tables = build_cluster_tables(scene)
+    o, d = _camera_rays(scene)
+    TILE_RAYS = pt.TILE_RAYS
+    o = np.asarray(o)
+    d = np.asarray(d)
     R = (len(o) // TILE_RAYS) * TILE_RAYS
     o, d = o[:R], d[:R]
 
     leaf_list, counts = jax.jit(bin_rays)(tables, jnp.asarray(o), jnp.asarray(d))
-    leaf_list, counts = np.asarray(leaf_list)[:, 0], np.asarray(counts)
+    leaf_list, counts = np.asarray(leaf_list), np.asarray(counts)
 
     # reference: exact per-ray slab test against each cluster AABB
     lmin = np.asarray(tables.cl_min)
@@ -60,167 +89,109 @@ def test_binning_covers_bruteforce_hits(scene):
 
 
 def test_pallas_interpret_matches_bruteforce(scene):
-    from crt_tpu.ops import camera as camera_ops
-
-    o, d = camera_ops.generate_rays(
-        scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
-        scene.width, scene.height,
-    )
-    o = o.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-
-    td = intersect.build_triangle_data(
-        scene.vertices, scene.tri_vidx,
-        scene.mat_backface[scene.tri_material],
-    )
-    brute = intersect.closest_hit_bruteforce(td, o, d)
-
+    o, d = _camera_rays(scene)
     trace = make_pallas_trace_fn(scene, interpret=True)
-    ph = trace(o, d)
-
-    bt, bi = np.asarray(brute.t), np.asarray(brute.tri)
-    pt, pi = np.asarray(ph.t), np.asarray(ph.tri)
-    assert ((bi < 0) == (pi < 0)).all()
-    hits = bi >= 0
-    np.testing.assert_allclose(pt[hits], bt[hits], rtol=1e-5, atol=1e-6)
-    # Disagreeing ids are exact-distance ties (shared-edge hits) where the
-    # reference's first-wins rule depends on traversal order; verify ties.
-    dis = hits & (pi != bi)
-    assert dis.mean() < 0.005
-    np.testing.assert_allclose(pt[dis], bt[dis], rtol=1e-6, atol=1e-7)
+    _assert_hits_match(_bruteforce(scene, o, d), trace(o, d))
 
 
-def test_full_render_pallas_interpret(scene):
+def test_full_render_pallas_interpret(scene, monkeypatch):
     brute = np.asarray(render_image(scene, RenderSettings(backend="bruteforce")))
-    import crt_tpu.ops.pallas_trace as ptr
     import crt_tpu.renderer as renderer
 
-    # monkeypatch-free: use backend="pallas" with interpret via env? Simplest:
-    # construct trace fn directly and call shade path through render with a
-    # patched factory.
     orig = renderer.make_trace_fn
 
     def patched(scn, settings):
         if settings.backend == "pallas":
-            return ptr.make_pallas_trace_fn(scn, interpret=True)
+            return make_pallas_trace_fn(scn, interpret=True)
         return orig(scn, settings)
 
-    renderer.make_trace_fn = patched
-    try:
-        pal = np.asarray(
-            render_image(scene, RenderSettings(backend="pallas"), jit=False)
-        )
-    finally:
-        renderer.make_trace_fn = orig
-
+    monkeypatch.setattr(renderer, "make_trace_fn", patched)
+    pal = np.asarray(
+        render_image(scene, RenderSettings(backend="pallas"), jit=False)
+    )
     np.testing.assert_allclose(pal, brute, rtol=1e-5, atol=1e-6)
 
 
-def test_kernel_emitted_rows_match_gather(scene):
-    """trace.with_rows emits bit-identical packed rows + slot-rank row."""
-    from crt_tpu.ops import camera as camera_ops
-    from crt_tpu.ops.pallas_trace import TILE_RAYS
-    from crt_tpu.ops.shade import _morton_rank, build_packed
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("pad", [0, 37])
+@pytest.mark.parametrize("masked", [False, True])
+def test_walk_matches_bruteforce(seed, pad, masked):
+    """The walk over seeded scenes, with a ray count that is or is not a
+    tile multiple (the wrapper pads with dead lanes) and with or without an
+    active mask (masked lanes leave the frusta; consumed lanes must still
+    match the reference)."""
+    s = make_test_scene(width=32, height=16, num_quads=20, seed=seed,
+                        with_reflective=False)
+    o, d = _camera_rays(s)
+    R = o.shape[0] - pad  # 512 rays = 2 tiles, or a ragged count
+    o, d = o[:R], d[:R]
+    act = (jnp.arange(R) % 5 != 0) if masked else None
+    trace = make_pallas_trace_fn(s, interpret=True)
+    got = trace(o, d, act)
+    assert got.t.shape == (R,) and got.tri.shape == (R,)
+    lanes = None if act is None else np.asarray(act)
+    _assert_hits_match(_bruteforce(s, o, d), got, lanes)
 
+
+def test_walk_batch_shape_preserved(scene):
+    """Leading batch dims round-trip through the flat kernel."""
+    o, d = _camera_rays(scene)
     trace = make_pallas_trace_fn(scene, interpret=True)
-    assert hasattr(trace, "with_rows")
-
-    o, d = camera_ops.generate_rays(
-        scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
-        scene.width, scene.height,
-    )
-    o = o.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-    R = (o.shape[0] // TILE_RAYS) * TILE_RAYS
-    o, d = o[:R], d[:R]
-
-    hit, rows = jax.jit(trace.with_rows)(o, d)
-    hit2 = jax.jit(trace)(o, d)
-    np.testing.assert_array_equal(np.asarray(hit.tri), np.asarray(hit2.tri))
-
-    packed = np.asarray(build_packed(scene))
-    tri = np.asarray(hit.tri)
-    valid = tri >= 0
-    expect = packed[:, np.maximum(tri, 0)]
-    got = np.asarray(rows[:-1])
-    # hit lanes: bit-identical to the gather; miss lanes are zero (patched
-    # downstream in hit_attributes)
-    np.testing.assert_array_equal(got[:, valid], expect[:, valid])
-    assert np.all(got[:, ~valid] == 0.0)
-
-    # last row == Morton rank of the hit triangle
-    rank = np.asarray(_morton_rank(scene, scene.num_triangles))
-    got_rank = np.asarray(rows[-1]).astype(np.int64)
-    np.testing.assert_array_equal(got_rank[valid], rank[tri[valid]])
+    flat = trace(o, d)
+    batched = trace(o.reshape(4, -1, 3), d.reshape(4, -1, 3))
+    assert batched.t.shape == (4, o.shape[0] // 4)
+    np.testing.assert_array_equal(np.asarray(batched.tri).reshape(-1),
+                                  np.asarray(flat.tri))
 
 
-def test_near_exit_matches_default(scene):
-    """The near-origin-first early-exit walk (CRT_NEAR_EXIT) returns the
-    same hits as the Morton-order full walk: distance lower bounds only
-    allow skipping clusters that could at best TIE (first-walked-wins),
-    and the consume mask seeds inactive lanes settled."""
-    from crt_tpu.ops import camera as camera_ops
-    from crt_tpu.ops.pallas_trace import (
-        TILE_RAYS,
-        build_cluster_tables,
-        closest_hit_pallas_flat,
-    )
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.5, 1.0])
+def test_compact_mask_matches_argsort(density):
+    """The linear-time cluster-list compaction lists exactly the admitted
+    clusters, in ascending order, with the right counts."""
+    rng = np.random.default_rng(int(density * 10))
+    mask = rng.random((6, 37)) < density
+    lst, counts = pt.compact_mask(jnp.asarray(mask))
+    lst, counts = np.asarray(lst), np.asarray(counts)
+    np.testing.assert_array_equal(counts, mask.sum(1))
+    for row in range(mask.shape[0]):
+        np.testing.assert_array_equal(
+            lst[row, : counts[row]], np.nonzero(mask[row])[0]
+        )
 
+
+def test_cluster_records_layout(scene):
+    """The fused record holds every table field, field-major per cluster."""
     tables = build_cluster_tables(scene)
-    o, d = camera_ops.generate_rays(
-        scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
-        scene.width, scene.height,
-    )
-    o = o.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-    R = (o.shape[0] // TILE_RAYS) * TILE_RAYS
-    o, d = o[:R], d[:R]
-    # a masked wavefront too: stripes of dead lanes (bounce-like)
-    act = (jnp.arange(R) % 3) != 0
-
-    for a in (None, act):
-        base = closest_hit_pallas_flat(
-            tables, o, d, a, interpret=True, near_exit=False
-        )
-        fast = closest_hit_pallas_flat(
-            tables, o, d, a, interpret=True, near_exit=True
-        )
-        lanes = np.ones(R, bool) if a is None else np.asarray(a)
-        bt, ft = np.asarray(base.t)[lanes], np.asarray(fast.t)[lanes]
-        np.testing.assert_array_equal(ft, bt)
-        bi, fi = np.asarray(base.tri)[lanes], np.asarray(fast.tri)[lanes]
-        dis = bi != fi  # cross-cluster exact-t ties may flip winners
-        assert dis.mean() < 0.005
-        np.testing.assert_array_equal(ft[dis], bt[dis])
+    rec = np.asarray(pt.cluster_records(tables))
+    L, S = tables.tri_id.shape
+    assert rec.shape == (L, pt.FIELDS, S)
+    np.testing.assert_array_equal(rec[:, 0:3].swapaxes(1, 2), tables.n)
+    np.testing.assert_array_equal(rec[:, 3], tables.nv0)
+    np.testing.assert_array_equal(rec[:, 4:13].swapaxes(1, 2), tables.m)
+    np.testing.assert_array_equal(rec[:, 13:16].swapaxes(1, 2), tables.c)
+    np.testing.assert_array_equal(rec[:, 16], tables.nobf)
+    np.testing.assert_array_equal(rec[:, 17].astype(np.int32), tables.tri_id)
 
 
-def test_occl_exit_matches_default(scene, monkeypatch):
-    """CRT_OCCL_EXIT (all-blocked while-exit + near order + inactive lanes
-    seeded blocked) leaves every CONSUMED occlusion bit unchanged."""
-    import importlib
+def test_block_must_divide_tile(scene, monkeypatch):
+    monkeypatch.setattr(pt, "BLOCK_RAYS", 96)
+    o, d = _camera_rays(scene)
+    with pytest.raises(ValueError, match="BLOCK_RAYS"):
+        make_pallas_trace_fn(scene, interpret=True)(o, d)
 
-    import crt_tpu.ops.pallas_trace as ptr
-    from crt_tpu.ops import camera as camera_ops
 
-    o, d = camera_ops.generate_rays(
-        scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
-        scene.width, scene.height,
-    )
-    point = o.reshape(-1, 3) + 2.0 * d.reshape(-1, 3)  # fake hit points
-    R = (point.shape[0] // ptr.TILE_RAYS) * ptr.TILE_RAYS
-    point = point[:R]
-    lp = scene.light_position
-    Ll = lp.shape[0]
-    lv = lp[:, None, :] - point[None]
-    r2 = jnp.sum(lv * lv, -1)
-    ldir = lv / jnp.sqrt(r2)[..., None]
-    act = ((jnp.arange(R) % 4) != 0)[None] & jnp.ones((Ll, R), bool)
+@pytest.mark.parametrize("platform,expect", [
+    ("gpu", "pallas"), ("cpu", "bruteforce"), ("unknown", None),
+])
+def test_auto_backend_choice(platform, expect, monkeypatch):
+    """``auto`` is the kernel on the GPU, the plain reference on the CPU,
+    and an error on any other platform; a named backend passes through."""
+    from crt_tpu import renderer
 
-    outs = {}
-    for flag in ("0", "1"):
-        monkeypatch.setattr(ptr, "_OCCL_EXIT", flag != "0")
-        trace = ptr.make_pallas_trace_fn(scene, interpret=True)
-        occ = trace.shadow_apex(point, ldir, r2, lp, act, 0.02)
-        outs[flag] = np.asarray(occ)
-    lanes = np.asarray(act)
-    np.testing.assert_array_equal(outs["1"][lanes], outs["0"][lanes])
+    monkeypatch.setattr(renderer.jax, "default_backend", lambda: platform)
+    assert renderer.resolve_backend("tree") == "tree"
+    if expect is None:
+        with pytest.raises(RuntimeError, match="no default"):
+            renderer.resolve_backend("auto")
+    else:
+        assert renderer.resolve_backend("auto") == expect

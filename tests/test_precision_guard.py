@@ -1,14 +1,16 @@
 """Guard: no default-precision dot may enter the render graph.
 
-TPU matmuls run the MXU at bf16 for Precision.DEFAULT — a single [R,3] @
-[3,3] camera rotation at default precision put ~4e-3 relative error on
-every ray direction and cost ~1.5% of golden pixels (round 2 discovery).
+On the GPU a float32 matmul at Precision.DEFAULT may run in TF32 (about
+three decimal digits) — a single [R,3] @ [3,3] camera rotation at reduced
+precision put ~4e-3 relative error on every ray direction and cost ~1.5%
+of golden pixels on an earlier accelerator (round 2 discovery).
 This test walks the jaxpr of a full render (with every statically-prunable
 feature enabled) and fails if any dot_general carries DEFAULT precision,
 so the bug class cannot silently return.
 """
 
 import jax
+import jax.extend
 import jax.numpy as jnp
 
 from crt_tpu import RenderSettings
@@ -42,7 +44,7 @@ def _assert_no_default_dots(fn, *args):
                and any(x == jax.lax.Precision.DEFAULT for x in p))]
     assert not bad, (
         f"{len(bad)} of {len(precisions)} dot_general ops use DEFAULT "
-        "precision — on TPU that is a bf16 MXU pass inside the render "
+        "precision — on the GPU that may be a TF32 pass inside the render "
         "graph (see tests/test_precision_guard.py docstring)"
     )
 

@@ -89,13 +89,17 @@ def test_gradients_flow_to_all_parameter_groups():
         assert np.abs(g).sum() > 0, f"no gradient signal to {name}"
 
 
-def test_pallas_vmem_guard():
-    from crt_tpu.renderer import _pallas_tables_fit_vmem
+def test_pixel_tile_matches_binning_tile():
+    """The renderer's pixel tile is the kernel's binning tile, and the
+    tiler's ray order round-trips through untile."""
+    import jax.numpy as jnp
 
-    small = make_test_scene(width=8, height=8, num_quads=2)
-    assert _pallas_tables_fit_vmem(small)
+    from crt_tpu.ops import pallas_trace
+    from crt_tpu.renderer import TILE_H, TILE_W, make_tiler
 
-    # fake a large triangle count via a scene stand-in
-    class Big:
-        num_triangles = 500_000
-    assert not _pallas_tables_fit_vmem(Big())
+    assert TILE_H * TILE_W == pallas_trace.TILE_RAYS
+    assert pallas_trace.TILE_RAYS % pallas_trace.BLOCK_RAYS == 0
+    rx, ry, untile = make_tiler(20, 35)
+    img = untile(jnp.stack([rx, ry, rx * 0], -1))
+    np.testing.assert_array_equal(np.asarray(img[..., 0])[3], np.arange(35))
+    np.testing.assert_array_equal(np.asarray(img[..., 1])[:, 7], np.arange(20))

@@ -191,101 +191,32 @@ def test_scene_sharded_grads_refractive_iter(mesh2d):
         )
 
 
-def test_scene_sharded_stream_backend_parity(mesh2d):
-    """The >VMEM-regime composition: each shard routes through the
-    HBM-STREAMING supercluster kernel (ops/pallas_stream) — pmin
-    hit-combine + pmax occlusion-combine across the scene axis — and the
-    render matches single-device.  Budget narrative: at the configured
-    VMEM budget the REPLICATED cluster tables do NOT fit one device; each
-    1/4 shard does (the regime scene partitioning exists for)."""
+@pytest.mark.parametrize("platform,expect", [
+    ("gpu", "pallas"), ("cpu", "tables"), ("unknown", None),
+])
+def test_shard_local_backend_choice(platform, expect, monkeypatch):
+    """The shard-local ``auto`` backend is the kernel on the GPU, the XLA
+    table oracle on the CPU, and an error elsewhere."""
+    from crt_tpu.parallel import scene_sharded
+
+    monkeypatch.setattr(scene_sharded.jax, "default_backend",
+                        lambda: platform)
+    if expect is None:
+        with pytest.raises(RuntimeError, match="no default"):
+            scene_sharded._resolve_shard_backend("auto")
+    else:
+        assert scene_sharded._resolve_shard_backend("auto") == expect
+    assert scene_sharded._resolve_shard_backend("tables") == "tables"
+
+
+def test_partitioned_trace_rejects_unknown_backend():
     from crt_tpu.ops.pallas_trace import build_cluster_tables
-    from crt_tpu.parallel.scene_sharded import (
-        build_partitioned_tables,
-        shard_tables_fit_vmem,
-    )
+    from crt_tpu.parallel.scene_sharded import make_partitioned_trace_fn
 
-    scene = make_test_scene(width=32, height=16, num_quads=300,
-                            with_reflective=False)
-    budget = 8 << 10  # toy VMEM budget for the regime assertion
-    full = build_cluster_tables(scene)
-    assert not shard_tables_fit_vmem(full, budget), "scene too small"
-    n_scene = mesh2d.shape["scene"]
-    L_pad = -(-full.n.shape[0] // n_scene) * n_scene
-    assert (L_pad // n_scene) * 16 * 17 * 4 <= budget, "shard must fit"
-
-    # physical partitioning: every device holds <= 1/N of each table
-    tables, packed, _ = build_partitioned_tables(scene, mesh2d, "scene")
-    for arr in list(tables) + [packed]:
-        per_dev = max(s.data.nbytes for s in arr.addressable_shards)
-        assert per_dev <= arr.nbytes // n_scene
-
-    single = np.asarray(
-        render_image(scene, RenderSettings(backend="bruteforce"))
-    )
-    sharded = np.asarray(render_image_scene_sharded(
-        scene, RenderSettings(), mesh2d, local_backend="pallas_stream",
-        sc_clusters=4, stream_tile_rays=256,
-    ))
-    np.testing.assert_allclose(sharded, single, rtol=1e-5, atol=1e-6)
-
-
-def test_scene_sharded_stream_grads_match_single_device(mesh2d):
-    """Grad parity for the stream-partitioned TRAINING step: gradients flow
-    back through the psum row exchange while intersection runs on the
-    streaming kernel's stop-gradient hit ids."""
-    import jax.numpy as jnp
-
-    from crt_tpu.parallel.scene_sharded import scene_sharded_value_and_grad
-    from crt_tpu.parallel.sharded import default_trainable_params
-
-    scene = make_test_scene(width=32, height=16, num_quads=5,
-                            with_reflective=True)
-    target = jnp.asarray(
-        render_image(scene, RenderSettings(backend="bruteforce"))
-    ) + 0.03
-    params = default_trainable_params(scene)
-    loss_sh, grads_sh = scene_sharded_value_and_grad(
-        scene, target, params=params, settings=RenderSettings(),
-        mesh=mesh2d, local_backend="pallas_stream", sc_clusters=4,
-        stream_tile_rays=256,
-    )
-
-    h, w = scene.height, scene.width
-
-    def loss_single(p):
-        s = scene.replace(**p)
-        img = render_image(s, RenderSettings(backend="bruteforce"),
-                           jit=False)
-        err = img - target
-        return jnp.sum(err * err) / (h * w * 3)
-
-    loss_1, grads_1 = jax.value_and_grad(loss_single)(params)
-    np.testing.assert_allclose(float(loss_sh), float(loss_1),
-                               rtol=1e-5, atol=1e-8)
-    for k in params:
-        np.testing.assert_allclose(
-            np.asarray(grads_sh[k]), np.asarray(grads_1[k]),
-            rtol=5e-4, atol=1e-6, err_msg=k,
-        )
-    assert max(float(np.abs(np.asarray(grads_sh[k])).max())
-               for k in params) > 0
-
-
-def test_scene_sharded_vmem_guard_falls_back(mesh2d):
-    """Forcing local_backend="pallas" past the per-shard VMEM budget warns
-    and falls back to the streaming kernel instead of OOMing in-kernel —
-    the partitioned path's analog of the flat renderer's auto guard."""
-    scene = make_test_scene(width=16, height=8, num_quads=32,
-                            with_reflective=False)
-    single = np.asarray(
-        render_image(scene, RenderSettings(backend="bruteforce"))
-    )
-    with pytest.warns(UserWarning, match="VMEM budget"):
-        sharded = np.asarray(render_image_scene_sharded(
-            scene, RenderSettings(), mesh2d, local_backend="pallas",
-            vmem_budget_bytes=64, sc_clusters=4, stream_tile_rays=256,
-        ))
-    np.testing.assert_allclose(sharded, single, rtol=1e-5, atol=1e-6)
+    scene = make_test_scene(width=8, height=8, num_quads=2)
+    with pytest.raises(ValueError, match="shard-local backend"):
+        make_partitioned_trace_fn(build_cluster_tables(scene), "scene",
+                                  "bruteforce")
 
 
 def test_scene_sharded_gi_grow_matches_single_device(mesh2d):

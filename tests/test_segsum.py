@@ -1,47 +1,23 @@
-"""MXU segment-matmul VJP (crt_tpu.ops.pallas_segsum).
+"""Per-triangle gradient accumulation: the packed-row gather
+(crt_tpu.ops.gather) whose VJP is XLA's scatter-add (segment sum) into the
+[K, T] table.  Checked against the plain gather, finite differences, an
+explicit segment-sum reference, and under shard_map."""
 
-The kernel must equal the XLA scatter-add it replaces up to f32 summation
-order, skip out-of-range ids, and leave gradients of the full render
-unchanged.  The Pallas kernel itself runs here in interpret mode (CPU).
-"""
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from crt_tpu.ops import pallas_segsum as ps
+from crt_tpu.ops import gather as gm
 
 
-def _reference(tri, g, T):
-    valid = (tri >= 0) & (tri < T)
-    safe = np.where(valid, tri, 0)
+def _segment_sum_reference(tri, g, T):
     out = np.zeros((g.shape[0], T), np.float64)
     for r in range(tri.shape[0]):
-        if valid[r]:
-            out[:, safe[r]] += g[:, r]
-    return out.astype(np.float32)
-
-
-def test_kernel_matches_scatter(monkeypatch):
-    rng = np.random.default_rng(7)
-    R, K, T = 3000, 9, 500
-    tri = rng.integers(-1, T, size=R).astype(np.int32)
-    g = rng.normal(size=(K, R)).astype(np.float32)
-
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(orig, interpret=True)
-    )
-    monkeypatch.setattr(ps, "_pallas_available", lambda: True)
-    out = np.asarray(
-        ps.segment_accumulate_matmul(jnp.asarray(tri), jnp.asarray(g), T)
-    )
-    expected = _reference(tri, g, T)
-    np.testing.assert_allclose(out, expected, rtol=1e-5, atol=1e-4)
+        out[:, tri[r]] += g[:, r]
+    return out
 
 
 def test_packed_gather_forward_and_grad():
@@ -50,11 +26,11 @@ def test_packed_gather_forward_and_grad():
     packed = jnp.asarray(rng.normal(size=(K, T)).astype(np.float32))
     tri = jnp.asarray(rng.integers(0, T, size=R).astype(np.int32))
 
-    out = ps.packed_gather(packed, tri)
+    out = gm.packed_gather(packed, tri)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(packed[:, tri]))
 
     def loss(p):
-        return jnp.sum(ps.packed_gather(p, tri) ** 2)
+        return jnp.sum(gm.packed_gather(p, tri) ** 2)
 
     g_custom = jax.grad(loss)(packed)
     g_plain = jax.grad(lambda p: jnp.sum(p[:, tri] ** 2))(packed)
@@ -63,8 +39,76 @@ def test_packed_gather_forward_and_grad():
     )
 
 
+@pytest.mark.parametrize("R,T,dup", [(300, 50, "random"), (64, 8, "all_same"),
+                                     (128, 512, "sparse")])
+def test_gather_vjp_is_segment_sum(R, T, dup):
+    """The VJP accumulates every ray's cotangent into its triangle's column
+    (many rays share a triangle: the atomic-add case on the GPU)."""
+    rng = np.random.default_rng(R + T)
+    K = 5
+    if dup == "all_same":
+        tri = np.full(R, 3, np.int32)
+    else:
+        tri = rng.integers(0, T, size=R).astype(np.int32)
+    packed = jnp.asarray(rng.normal(size=(K, T)).astype(np.float32))
+    g = rng.normal(size=(K, R)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p: gm.packed_gather(p, jnp.asarray(tri)), packed)
+    (grad,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(
+        np.asarray(grad), _segment_sum_reference(tri, g, T),
+        rtol=1e-5, atol=1e-5,
+    )
+
+
+def test_gather_vjp_matches_finite_differences():
+    rng = np.random.default_rng(11)
+    K, T, R = 4, 12, 90
+    packed = jnp.asarray(rng.normal(size=(K, T)), jnp.float64 if
+                         jax.config.jax_enable_x64 else jnp.float32)
+    tri = jnp.asarray(rng.integers(0, T, size=R).astype(np.int32))
+    wts = jnp.asarray(rng.normal(size=(K, R)).astype(np.float32))
+
+    def loss(p):
+        return jnp.sum(jnp.sin(gm.packed_gather(p, tri)) * wts)
+
+    g = np.asarray(jax.grad(loss)(packed))
+    eps = 1e-2
+    for k, t in ((0, 0), (1, 5), (3, 11), (2, int(tri[0]))):
+        e = jnp.zeros_like(packed).at[k, t].set(eps)
+        fd = (float(loss(packed + e)) - float(loss(packed - e))) / (2 * eps)
+        np.testing.assert_allclose(g[k, t], fd, rtol=2e-2, atol=2e-3)
+
+
+def test_gather_grad_under_shard_map_is_psummed():
+    """Under shard_map the replicated table is cast to vary over the rays
+    axis; the transpose of the cast sums the per-device partial gradients,
+    so the sharded gradient equals the single-device one."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    n = 4
+    mesh = Mesh(np.array(jax.devices()[:n]), ("rays",))
+    rng = np.random.default_rng(5)
+    K, T, R = 3, 20, 64
+    packed = jnp.asarray(rng.normal(size=(K, T)).astype(np.float32))
+    tri = jnp.asarray(rng.integers(0, T, size=R).astype(np.int32))
+
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=(P(), P("rays")),
+                       out_specs=P())
+    def sharded_grad(p, tri_local):
+        def loss(p):
+            return jax.lax.psum(
+                jnp.sum(gm.packed_gather(p, tri_local) ** 2), "rays"
+            )
+        return jax.grad(loss)(p)
+
+    g_sharded = jax.jit(sharded_grad)(packed, tri)
+    g_single = jax.grad(lambda p: jnp.sum(p[:, tri] ** 2))(packed)
+    np.testing.assert_allclose(np.asarray(g_sharded), np.asarray(g_single),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_render_grad_unchanged_by_custom_vjp():
-    """End-to-end: gradients through hit_attributes (which now routes the
+    """End-to-end: gradients through hit_attributes (which routes the
     gather through packed_gather) match finite differences."""
     from crt_tpu import RenderSettings, render_image
     from crt_tpu.scene.procedural import make_test_scene
@@ -86,101 +130,3 @@ def test_render_grad_unchanged_by_custom_vjp():
         fd = (loss(li) - loss(lo)) / (2 * eps)
         # rtol bounded by f32 cancellation in the FD numerator
         np.testing.assert_allclose(float(g[i]), float(fd), rtol=1e-2)
-
-
-def test_banded_segsum_matches_scatter(monkeypatch):
-    """Rank-remapped (banded) accumulation must equal the plain scatter in
-    ORIGINAL segment ids, with ids clustered per ray tile (the skip path)
-    and scattered (no skip) alike."""
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(orig, interpret=True)
-    )
-    monkeypatch.setattr(ps, "_pallas_available", lambda: True)
-
-    rng = np.random.default_rng(11)
-    R, K, T = 4096, 5, 700
-    rank = jnp.asarray(rng.permutation(T).astype(np.int32))
-    # tile-banded ids: each 1024-ray tile draws from a narrow id window
-    tri = np.empty(R, np.int32)
-    for t0 in range(0, R, 1024):
-        lo = rng.integers(0, T - 60)
-        tri[t0 : t0 + 1024] = rng.integers(lo, lo + 60, size=1024)
-    tri[::97] = -1  # sprinkle dead lanes
-    g = rng.normal(size=(K, R)).astype(np.float32)
-
-    out = np.asarray(
-        ps.segment_accumulate_banded(
-            jnp.asarray(tri), jnp.asarray(g), T, rank
-        )
-    )
-    expected = _reference(tri, g, T)
-    np.testing.assert_allclose(out, expected, rtol=1e-5, atol=1e-4)
-
-
-def test_banded_vjp_drops_miss_lanes_exactly(monkeypatch):
-    """packed_gather_ranked's VJP band-drops miss lanes (tri = -1).  That
-    is exact ONLY if miss-lane cotangents are exactly zero — assert it by
-    comparing full render gradients (scene with plenty of background
-    pixels) between the interpret-mode banded kernel and the XLA scatter."""
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    from crt_tpu import RenderSettings, render_image
-    from crt_tpu.scene.procedural import make_test_scene
-
-    scene = make_test_scene(width=32, height=24, num_quads=2)
-
-    def grads():
-        def loss(v):
-            img = render_image(
-                scene.replace(vertices=v), RenderSettings(), jit=False
-            )
-            return jnp.sum(img ** 2)
-
-        return np.asarray(jax.grad(loss)(scene.vertices))
-
-    monkeypatch.setenv("CRT_SEGSUM", "scatter")
-    g_scatter = grads()
-
-    monkeypatch.setenv("CRT_SEGSUM", "matmul")
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(orig, interpret=True)
-    )
-    monkeypatch.setattr(ps, "_pallas_available", lambda: True)
-    g_kernel = grads()
-
-    np.testing.assert_allclose(g_kernel, g_scatter, rtol=2e-6, atol=1e-6)
-
-
-def test_kernel_subtiled_matches_scatter(monkeypatch):
-    """Sub-tiled grid blocks (r_sub < r_tile, round 4): every (r_tile,
-    r_sub) combination must match the scatter reference — the sub-bands
-    gate per-sub one-hot matmuls inside one grid step."""
-    rng = np.random.default_rng(11)
-    R, K, T = 9000, 7, 1200
-    tri = rng.integers(-1, T, size=R).astype(np.int32)
-    g = rng.normal(size=(K, R)).astype(np.float32)
-
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(orig, interpret=True)
-    )
-    monkeypatch.setattr(ps, "_pallas_available", lambda: True)
-    expected = _reference(tri, g, T)
-    for r_tile, r_sub in ((4096, 1024), (8192, 2048), (2048, 2048)):
-        out = np.asarray(ps.segment_accumulate_matmul(
-            jnp.asarray(tri), jnp.asarray(g), T, r_tile, r_sub
-        ))
-        np.testing.assert_allclose(out, expected, rtol=1e-5, atol=1e-4,
-                                   err_msg=f"{r_tile}/{r_sub}")

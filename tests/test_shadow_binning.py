@@ -1,31 +1,37 @@
-"""Shadow-structured binning (pallas_trace.bin_shadow_rays) parity.
+"""Shadow binning (pallas_trace.bin_apex_shared) + the w-form occlusion
+kernel (interpret mode on CPU) vs a dense, unbinned evaluation of the same
+test.
 
-The shadow fast path derives per-light direction intervals by interval
-arithmetic from the pixel-tile origin box and culls clusters entirely beyond
-the light (t-cap at 1 in the unnormalized direction scale).  These tests
-assert the resulting occlusion masks are IDENTICAL to tracing the flattened
-shadow wavefront through the generic path (crt_renderer.cpp:81-96 semantics:
-occluded iff closest hit with hit_dist^2 <= light_dist^2).
+The shadow path bins each pixel tile by the light-side shaft (slab + cone
++ wedge, culling clusters entirely beyond the light) and walks only the
+admitted clusters.  Binning only ever drops clusters no active segment can
+reach, so the occlusion bits must be IDENTICAL to testing every triangle
+(crt_renderer.cpp:81-96 semantics in the w parameterisation: occluded iff
+some triangle is hit at 0 <= s <= 1 along w = light - point).
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from crt_tpu.ops import camera as camera_ops
-from crt_tpu.ops import vecmath
-from crt_tpu.ops.pallas_trace import TILE_RAYS, make_pallas_trace_fn
+from crt_tpu.ops.intersect import PARALLEL_EPS
+from crt_tpu.ops.pallas_trace import (
+    TILE_RAYS,
+    bin_apex_shared,
+    bin_rays,
+    build_cluster_tables,
+    make_pallas_trace_fn,
+)
 from crt_tpu.scene.procedural import make_test_scene
 
 
 @pytest.fixture(scope="module")
 def setup():
-    # 64x64 pixels -> exactly 4 tiles of TILE_RAYS after the 32x32 tiler.
+    # 64x64 pixels -> 16 tiles of TILE_RAYS after the pixel tiler.
     scene = make_test_scene(width=64, height=64, num_quads=14,
                             with_reflective=False)
-    trace = make_pallas_trace_fn(scene, interpret=True,
-                                 use_shadow_binning=True)
+    trace = make_pallas_trace_fn(scene, interpret=True)
     from crt_tpu.renderer import make_tiler
 
     rx, ry, _ = make_tiler(scene.height, scene.width)
@@ -42,176 +48,131 @@ def setup():
     t = jnp.where(hit.tri >= 0, hit.t, 0.0)
     point = o + d * t[:, None]
     shadow_o = point - d * 1e-2
-    return scene, trace, shadow_o, jnp.asarray(valid)
+    return scene, trace, point, shadow_o, jnp.asarray(valid)
 
 
-def _generic_occlusion(trace, shadow_o, light_positions, act):
-    Ll = light_positions.shape[0]
-    R = shadow_o.shape[0]
-    light_vec = light_positions[:, None, :] - shadow_o[None]
-    r2 = vecmath.length_squared(light_vec)
-    light_dir = vecmath.safe_normalize(light_vec)
-    sh = trace(
-        jnp.broadcast_to(shadow_o[None], (Ll, R, 3)).reshape(-1, 3),
-        light_dir.reshape(-1, 3),
-        act.reshape(-1),
-    )
-    occ = (sh.tri >= 0) & (sh.t * sh.t <= r2.reshape(-1))
-    return occ.reshape(Ll, R), light_dir, r2
+def _dense_w(scene, point, shadow_o, lp, act, capped=True, glass_only=False):
+    """Every triangle against every lane, same arithmetic as the kernel."""
+    from crt_tpu.scene.types import MATERIAL_REFRACTIVE
+
+    tb = build_cluster_tables(scene)
+    n = tb.n.reshape(-1, 3)
+    nv0 = tb.nv0.reshape(-1)
+    m = tb.m.reshape(-1, 9)
+    c = tb.c.reshape(-1, 3)
+    nobf = tb.nobf.reshape(-1)
+    o = shadow_o[None, :, None, :]  # [1, R, 1, 3]
+    w = (lp[:, None, :] - point[None])[:, :, None, :]  # [Ll, R, 1, 3]
+
+    def dot3(a, v):
+        return a[:, 0] * v[..., 0] + a[:, 1] * v[..., 1] + a[:, 2] * v[..., 2]
+
+    nd = dot3(n, w)
+    opd = nv0 - dot3(n, o)
+    not_parallel = jnp.abs(nd) >= PARALLEL_EPS
+    t = opd / jnp.where(not_parallel, nd, 1.0)
+    ok = not_parallel & ((opd < 0.0) | (nobf > 0.5)) & (t >= 0.0)
+    for e in range(3):
+        me = m[:, 3 * e:3 * e + 3]
+        ok = ok & ((dot3(me, o) - c[:, e]) + t * dot3(me, w) >= 0.0)
+    if capped:
+        ok = ok & (t <= 1.0)
+    if glass_only:
+        ids = jnp.maximum(tb.tri_id.reshape(-1), 0)
+        glass = (scene.mat_type[scene.tri_material] == MATERIAL_REFRACTIVE)[ids]
+        ok = ok & glass & (tb.tri_id.reshape(-1) >= 0)
+    return np.asarray(ok.any(-1)) & np.asarray(act)
 
 
-def test_shadow_occluded_matches_generic(setup):
-    scene, trace, shadow_o, valid = setup
-    Ll = scene.light_position.shape[0]
-    act = jnp.broadcast_to(valid[None], (Ll, valid.shape[0]))
-
-    occ_ref, light_dir, r2 = _generic_occlusion(
-        trace, shadow_o, scene.light_position, act
-    )
-    occ_fast = trace.shadow_occluded(
-        shadow_o, light_dir, r2, scene.light_position, act, 2e-2
-    )
+@pytest.mark.parametrize("lanes", ["all", "stripes", "first_quarter", "none"])
+def test_shadow_apex_w_matches_dense(setup, lanes):
+    """Binned kernel == dense test on every consumed lane, for full, striped,
+    mostly-dead (dead tiles bin to empty lists) and empty wavefronts."""
+    scene, trace, point, shadow_o, valid = setup
+    lp = scene.light_position
+    R = point.shape[0]
+    keep = {
+        "all": jnp.ones(R, bool),
+        "stripes": jnp.arange(R) % 3 != 0,
+        "first_quarter": jnp.arange(R) < R // 4,
+        "none": jnp.zeros(R, bool),
+    }[lanes]
+    act = jnp.broadcast_to((valid & keep)[None], (lp.shape[0], R))
+    ref = _dense_w(scene, point, shadow_o, lp, act)
+    got = np.asarray(trace.shadow_apex_w(point, shadow_o, lp, act, 2e-2))
     a = np.asarray(act)
-    np.testing.assert_array_equal(
-        np.asarray(occ_fast)[a], np.asarray(occ_ref)[a]
-    )
-    # the scene must exercise both outcomes for the test to mean anything
-    assert np.asarray(occ_ref)[a].any() and (~np.asarray(occ_ref)[a]).any()
+    np.testing.assert_array_equal(got[a], ref[a])
+    if lanes == "all":
+        # the scene must exercise both outcomes for the test to mean anything
+        assert ref[a].any() and (~ref[a]).any()
 
 
 def test_beyond_light_culling_is_occlusion_exact(setup):
     """Geometry strictly beyond the light must not occlude — and the t-cap
-    culling that drops it must not flip any mask."""
-    scene, _, shadow_o, valid = setup
-    # move every light to 1e-3 above each shadow origin's own position is
-    # not expressible per-light; instead use a light very close to the
-    # camera so most scene geometry sits beyond it.
+    culling that drops it must not flip any mask.  A light very close to
+    the camera puts most scene geometry beyond it."""
+    scene, trace, point, shadow_o, valid = setup
     light_positions = jnp.asarray(
         [np.asarray(scene.cam_position) + np.array([0.0, 0.1, 0.0])],
         jnp.float32,
     )
-    trace = make_pallas_trace_fn(scene, interpret=True,
-                                 use_shadow_binning=True)
     act = valid[None]
-    occ_ref, light_dir, r2 = _generic_occlusion(
-        trace, shadow_o, light_positions, act
-    )
-    occ_fast = trace.shadow_occluded(
-        shadow_o, light_dir, r2, light_positions, act, 2e-2
-    )
+    ref = _dense_w(scene, point, shadow_o, light_positions, act)
+    got = np.asarray(trace.shadow_apex_w(point, shadow_o, light_positions,
+                                         act, 2e-2))
     a = np.asarray(act)
-    np.testing.assert_array_equal(
-        np.asarray(occ_fast)[a], np.asarray(occ_ref)[a]
-    )
+    np.testing.assert_array_equal(got[a], ref[a])
 
 
 def test_shadow_bins_cull_beyond_light():
-    """Clusters strictly beyond the light along every tile ray must be
+    """Clusters strictly beyond the light along every tile segment must be
     culled (t-cap), while occlusion masks stay exact — synthetic scene with
-    a wall BEHIND the light as seen from the shadow origins."""
-    from crt_tpu.ops.pallas_trace import (
-        bin_shadow_rays,
-        build_cluster_tables,
-    )
-
-    # deep scene: many quads far behind the light
+    the whole quad field BEHIND the light as seen from the shadow origins."""
     scene = make_test_scene(width=64, height=64, num_quads=200,
                             with_reflective=False)
     tables = build_cluster_tables(scene)
-    trace = make_pallas_trace_fn(scene, interpret=True,
-                                 use_shadow_binning=True)
+    trace = make_pallas_trace_fn(scene, interpret=True)
 
     R = TILE_RAYS
     rng = np.random.default_rng(3)
     # shadow origins on a small patch near the camera; light just in front
     # of them; the whole quad field (z in [-3, -9]) sits beyond the light.
-    shadow_o = jnp.asarray(
-        rng.uniform(-0.5, 0.5, (R, 3)).astype(np.float32)
-    )
+    point = jnp.asarray(rng.uniform(-0.5, 0.5, (R, 3)).astype(np.float32))
     light = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
     act = jnp.ones((1, R), bool)
 
-    occ_ref, light_dir, r2 = _generic_occlusion(trace, shadow_o, light, act)
-    occ_fast = trace.shadow_occluded(shadow_o, light_dir, r2, light, act, 0.0)
-    np.testing.assert_array_equal(np.asarray(occ_fast), np.asarray(occ_ref))
-    # nothing between the origins and the light -> nothing occluded
-    assert not np.asarray(occ_ref).any()
+    got = np.asarray(trace.shadow_apex_w(point, point, light, act, 0.0))
+    ref = _dense_w(scene, point, point, light, act)
+    np.testing.assert_array_equal(got, ref)
+    assert not ref.any()  # nothing between the origins and the light
 
-    _, counts = bin_shadow_rays(tables, shadow_o, light, act, TILE_RAYS, 0.0)
+    _, counts = bin_apex_shared(tables, point, light, act, TILE_RAYS, 0.0)
     L = tables.n.shape[0]
     assert L > 4  # enough clusters for culling to be observable
-    # every cluster is in front of the frustum but beyond the light
     assert int(counts.max()) < L // 2
-
-
-def test_shadow_apex_matches_generic(setup):
-    """The light-side shaft binning (bin_rays apex mode) must produce
-    IDENTICAL occlusion masks to the generic path on active lanes."""
-    scene, trace, shadow_o, valid = setup
-    Ll = scene.light_position.shape[0]
-    act = jnp.broadcast_to(valid[None], (Ll, valid.shape[0]))
-
-    occ_ref, light_dir, r2 = _generic_occlusion(
-        trace, shadow_o, scene.light_position, act
-    )
-    occ_apex = trace.shadow_apex(
-        shadow_o, light_dir, r2, scene.light_position, act, 2e-2
-    )
-    a = np.asarray(act)
-    np.testing.assert_array_equal(
-        np.asarray(occ_apex)[a], np.asarray(occ_ref)[a]
-    )
-    assert np.asarray(occ_ref)[a].any() and (~np.asarray(occ_ref)[a]).any()
-
-
-@pytest.mark.parametrize("st", [256, 512])
-def test_shadow_apex_smaller_tiles_match_generic(setup, st):
-    """shadow_tile_rays < TILE_RAYS must leave occlusion masks IDENTICAL —
-    only the binning granularity changes, never the hit set."""
-    scene, trace, shadow_o, valid = setup
-    trace_st = make_pallas_trace_fn(scene, interpret=True,
-                                    shadow_tile_rays=st)
-    Ll = scene.light_position.shape[0]
-    act = jnp.broadcast_to(valid[None], (Ll, valid.shape[0]))
-
-    occ_ref, light_dir, r2 = _generic_occlusion(
-        trace, shadow_o, scene.light_position, act
-    )
-    occ_st = trace_st.shadow_apex(
-        shadow_o, light_dir, r2, scene.light_position, act, 2e-2
-    )
-    a = np.asarray(act)
-    np.testing.assert_array_equal(
-        np.asarray(occ_st)[a], np.asarray(occ_ref)[a]
-    )
-    assert np.asarray(occ_ref)[a].any() and (~np.asarray(occ_ref)[a]).any()
 
 
 def test_apex_bins_cover_segment_oracle(setup):
     """Every cluster some ACTIVE ray's segment [origin, light] actually
     slab-intersects must survive the apex cull (conservativeness), and the
     apex lists must not be larger than the generic frustum's."""
-    from crt_tpu.ops.pallas_trace import bin_rays, build_cluster_tables
-
-    scene, trace, shadow_o, valid = setup
+    scene, trace, point, shadow_o, valid = setup
     tables = build_cluster_tables(scene)
     cl_min = np.asarray(tables.cl_min)
     cl_max = np.asarray(tables.cl_max)
-    L = cl_min.shape[0]
 
-    P = np.asarray(scene.light_position)[0]
+    P = np.asarray(scene.light_position)[:1]
     R = shadow_o.shape[0]
     o = np.asarray(shadow_o)
-    lv = P[None] - o
+    lv = P - o
     r = np.sqrt((lv * lv).sum(-1))
     d = lv / np.maximum(r, 1e-30)[:, None]
     act = np.asarray(valid)
 
     slack = 2e-2
-    apex = jnp.broadcast_to(jnp.asarray(P), (R // TILE_RAYS, 3))
-    cl_apex, cnt_apex = bin_rays(
-        tables, jnp.asarray(o), jnp.asarray(d), TILE_RAYS,
-        jnp.asarray(act), apex=apex, apex_slack=slack,
+    cl_apex, cnt_apex = bin_apex_shared(
+        tables, shadow_o, jnp.asarray(P), jnp.asarray(act)[None], TILE_RAYS,
+        slack,
     )
     cl_gen, cnt_gen = bin_rays(
         tables, jnp.asarray(o), jnp.asarray(d), TILE_RAYS, jnp.asarray(act)
@@ -222,7 +183,7 @@ def test_apex_bins_cover_segment_oracle(setup):
 
     # oracle per tile: clusters any active ray's [o, P] segment slab-hits
     tiles = R // TILE_RAYS
-    cl_apex = np.asarray(cl_apex)[:, 0, :]
+    cl_apex = np.asarray(cl_apex)
     for ti in range(tiles):
         sl = slice(ti * TILE_RAYS, (ti + 1) * TILE_RAYS)
         o_t, d_t, a_t, r_t = o[sl], d[sl], act[sl], r[sl]
@@ -239,145 +200,48 @@ def test_apex_bins_cover_segment_oracle(setup):
         assert needed <= kept, (ti, needed - kept)
 
 
-def test_compact_launcher_matches_plain(setup):
-    """_closest_hit_binned_compact (live-first tile permutation + tiered
-    grid) must be bit-identical to the plain launch on a sparse wavefront."""
-    from crt_tpu.ops.pallas_trace import (
-        _closest_hit_binned, _closest_hit_binned_compact, bin_rays,
-        build_cluster_tables,
-    )
-
-    scene, trace, shadow_o, valid = setup
-    tables = build_cluster_tables(scene)
-    P = scene.light_position[0]
-    R = shadow_o.shape[0]
-    d = P[None] - shadow_o
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    # kill most tiles: only the first quarter of lanes stay active
-    act = valid & (jnp.arange(R) < R // 4)
-    cl, cnt = bin_rays(tables, shadow_o, d, TILE_RAYS, act)
-    assert int((np.asarray(cnt) == 0).sum()) > 0  # sparse by construction
-
-    tiles = R // TILE_RAYS
-    o_t = shadow_o.reshape(tiles, TILE_RAYS, 3).swapaxes(1, 2)
-    d_t = d.reshape(tiles, TILE_RAYS, 3).swapaxes(1, 2)
-    t0, tri0 = _closest_hit_binned(
-        tables, o_t, d_t, cl, cnt, TILE_RAYS, True
-    )
-    t1, tri1 = _closest_hit_binned_compact(
-        tables, o_t, d_t, cl, cnt, TILE_RAYS, True
-    )
-    live = np.asarray(cnt) > 0
-    # live tiles: bit-identical; dead tiles: forced misses either way
-    np.testing.assert_array_equal(np.asarray(t0)[live], np.asarray(t1)[live])
-    np.testing.assert_array_equal(
-        np.asarray(tri0)[live], np.asarray(tri1)[live]
-    )
-    assert np.isinf(np.asarray(t1)[~live]).all()
-    assert (np.asarray(tri1)[~live] == -1).all()
-
-
-def test_compact_masked_full_render_parity():
-    """make_pallas_trace_fn(compact_masked=True) must render bit-identically
-    (masked bounce traces take the compacted launch, incl. rows emission)."""
-    from crt_tpu.ops import camera as camera_ops
-    from crt_tpu.ops.pallas_trace import make_pallas_trace_fn
-    from crt_tpu.ops.shade import shade_wavefront
+@pytest.mark.parametrize("seed", [0, 1])
+def test_glass_router_matches_uncapped_gate(seed):
+    """The merged one-pass router (shadow_apex_w_glass) must report the
+    same occlusion bits as the plain w pass and the same glass bits as the
+    separate uncapped gate (refr_ray_hit_w), which in turn match a dense
+    uncapped glass-member test."""
     from crt_tpu.renderer import make_tiler
-    from crt_tpu.scene.procedural import make_test_scene
-    from crt_tpu.scene.types import RenderSettings
 
-    scene = make_test_scene(width=24, height=16, num_quads=6,
-                            with_reflective=True)
+    scene = make_test_scene(width=64, height=32, num_quads=10, seed=seed,
+                            with_refractive=True)
+    trace = make_pallas_trace_fn(scene, interpret=True)
     rx, ry, _ = make_tiler(scene.height, scene.width)
     o, d = camera_ops.generate_rays(
         scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
         scene.width, scene.height, rx, ry,
     )
-    settings = RenderSettings()
+    hit = trace(o, d)
+    point = o + d * jnp.where(hit.tri >= 0, hit.t, 0.0)[:, None]
+    shadow_o = point - d * 1e-2
+    lp = scene.light_position
+    act = jnp.broadcast_to((hit.tri >= 0)[None], (lp.shape[0], o.shape[0]))
 
-    def render(trace_fn):
-        return shade_wavefront(
-            scene, settings, trace_fn, o, d,
-            rx.astype(jnp.uint32), ry.astype(jnp.uint32),
-        )
-
-    img_plain = render(make_pallas_trace_fn(scene, interpret=True))
-    img_comp = render(
-        make_pallas_trace_fn(scene, interpret=True, compact_masked=True)
-    )
-    np.testing.assert_array_equal(np.asarray(img_plain), np.asarray(img_comp))
-
-
-def test_compact_masked_grads_bit_identical():
-    """Gradients through the compacted rows emission must match the plain
-    launch bit-for-bit (the masking is upstream of the rows custom_vjp)."""
-    from crt_tpu.ops import camera as camera_ops
-    from crt_tpu.ops.pallas_trace import make_pallas_trace_fn
-    from crt_tpu.ops.shade import shade_wavefront
-    from crt_tpu.renderer import make_tiler
-    from crt_tpu.scene.procedural import make_test_scene
-    from crt_tpu.scene.types import RenderSettings
-
-    scene = make_test_scene(width=24, height=16, num_quads=6,
-                            with_reflective=True)
-    rx, ry, _ = make_tiler(scene.height, scene.width)
-    settings = RenderSettings()
-
-    def loss(v, trace_fn):
-        s = scene.replace(vertices=v)
-        o, d = camera_ops.generate_rays(
-            s.cam_position, s.cam_rotation, s.cam_tan_half_fov,
-            s.width, s.height, rx, ry,
-        )
-        col = shade_wavefront(
-            s, settings, trace_fn, o, d,
-            rx.astype(jnp.uint32), ry.astype(jnp.uint32),
-        )
-        return jnp.sum(col ** 2)
-
-    tf_plain = make_pallas_trace_fn(scene, interpret=True)
-    tf_comp = make_pallas_trace_fn(scene, interpret=True,
-                                   compact_masked=True)
-    g_plain = jax.grad(lambda v: loss(v, tf_plain))(scene.vertices)
-    g_comp = jax.grad(lambda v: loss(v, tf_comp))(scene.vertices)
-    assert bool(jnp.array_equal(g_plain, g_comp))
-    assert float(jnp.abs(g_plain).max()) > 0
-
-
-def test_occl_kernel_flag_parity(setup, monkeypatch):
-    """The occlusion-specialized kernel (OR-accumulate any t^2 <= r2) must
-    produce IDENTICAL masks to closest-hit-then-compare on active lanes."""
-    import crt_tpu.ops.pallas_trace as pt
-
-    scene, trace, shadow_o, valid = setup
-    Ll = scene.light_position.shape[0]
-    act = jnp.broadcast_to(valid[None], (Ll, valid.shape[0]))
-    _, light_dir, r2 = _generic_occlusion(
-        trace, shadow_o, scene.light_position, act
-    )
-
-    outs = {}
-    for flag in (True, False):
-        monkeypatch.setattr(pt, "_SHADOW_OCCL_KERNEL", flag)
-        outs[flag] = np.asarray(trace.shadow_apex(
-            shadow_o, light_dir, r2, scene.light_position, act, 2e-2
-        ))
+    occ, glass = trace.shadow_apex_w_glass(point, shadow_o, lp, act, 2e-2)
+    occ_plain = trace.shadow_apex_w(point, shadow_o, lp, act, 2e-2)
+    gate = trace.refr_ray_hit_w(point, shadow_o, lp, act, 2e-2)
     a = np.asarray(act)
-    np.testing.assert_array_equal(outs[True][a], outs[False][a])
-    assert outs[True][a].any() and (~outs[True][a]).any()
+    np.testing.assert_array_equal(np.asarray(occ)[a], np.asarray(occ_plain)[a])
+    np.testing.assert_array_equal(np.asarray(glass)[a], np.asarray(gate)[a])
+    ref = _dense_w(scene, point, shadow_o, lp, act, capped=False,
+                   glass_only=True)
+    np.testing.assert_array_equal(np.asarray(gate)[a], ref[a])
+    assert ref[a].any()
 
 
 def test_full_line_slab_negative_t_regression():
-    """Regression (round 5): the t_lo_clamp=False slab must use four-corner
-    interval division — the one-corner t>=0 formulas INVERT per-axis
-    [entry, exit] for boxes in the negative-t (beyond-the-light) region.
-    Exact counterexample from 11-01-scene8: tile origin box behind the
-    light, glass cluster reachable at apex-t ~ -3, z-axis formula gave
-    [-0.93, -4.44] and culled it (the transmissive-march gate then missed
-    the glass and mis-shadowed the lane)."""
-    import jax.numpy as jnp
+    """Regression: the t_lo_clamp=False slab must use four-corner interval
+    division — the one-corner t>=0 formulas INVERT per-axis [entry, exit]
+    for boxes in the negative-t (beyond-the-light) region.  Exact
+    counterexample from 11-01-scene8: tile origin box behind the light,
+    glass cluster reachable at apex-t ~ -3, z-axis formula gave [-0.93,
+    -4.44] and culled it (the transmissive-march gate then missed the glass
+    and mis-shadowed the lane)."""
     from crt_tpu.ops.pallas_trace import _frustum_box_mask
 
     apex = jnp.asarray([[-9.0, 16.0, 0.0]], jnp.float32)

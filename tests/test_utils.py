@@ -4,6 +4,7 @@ import math
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from crt_tpu import RenderSettings, render_image
 from crt_tpu.scene.procedural import make_test_scene
@@ -82,3 +83,29 @@ def test_trace_pixel_records_rays():
     script = log.to_blender_script()
     assert "bpy.ops.crt.debug_ray_add(" in script
     assert "raster_coords=(12, 8)" in script
+
+
+@pytest.mark.parametrize("env_dir", [None, "/some/cache/dir"])
+def test_compilation_cache_dir(env_dir, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and the code sets no directory of its
+    own; without it the cache lives at the fixed <checkout>/.jax_cache."""
+    import os
+
+    import jax
+
+    from crt_tpu.utils import cache
+
+    updates = {}
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: updates.__setitem__(k, v))
+    monkeypatch.setattr(os, "makedirs", lambda *a, **k: None)
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.enable_compilation_cache() == os.path.join(
+            checkout, ".jax_cache")
+        assert updates["jax_compilation_cache_dir"] == cache.DEFAULT_DIR
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        assert cache.enable_compilation_cache() == env_dir
+        assert "jax_compilation_cache_dir" not in updates

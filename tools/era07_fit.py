@@ -32,7 +32,7 @@ Method (run this script to re-verify):
     floor(255 * (0.5 + 0.5*0.57504)) = floor(200.82) = 200 — the same rule
     explains the whole era.
 
-Result (TPU sweep): scene0 1.0000, scene1 0.9996, scene2 0.9998,
+Result (golden sweep): scene0 1.0000, scene1 0.9996, scene2 0.9998,
 scene3 1.0000, scene4 1.0000 pixel match (residuals are silhouette-edge
 visibility flips from f32 op order, same class as the other goldens).
 """

@@ -1,7 +1,7 @@
 """Forensic demonstration of the 12-01-scene3 residual (VERDICT r4 #4).
 
 Claim to verify (currently a hypothesis in CLAUDE.md): every pixel where
-our TPU render disagrees with the committed golden is a NEAREST-TEXEL
+our render disagrees with the committed golden is a NEAREST-TEXEL
 TRUNCATION FLIP — the f64 texel coordinate sits on (within f32-noise of)
 a texel boundary, the golden equals the reference-f32 shading of one side
 and our render the shading of the adjacent side — plus possibly a handful
@@ -9,7 +9,7 @@ of triangle-silhouette flips of the same boundary character.  If any
 mismatched pixel is NOT explained this way, that is a real renderer bug.
 
 Method:
-  1. our image: render 12-01-textures/scene3 through the committed TPU
+  1. our image: render 12-01-textures/scene3 through the committed
      path (same profile as the golden sweep), quantized to bytes;
   2. reference pipeline at dtype={f32 (exact ref op order), f64}:
      camera -> plane hit -> barycentric uv -> texel coords, plus the f32

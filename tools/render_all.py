@@ -25,7 +25,7 @@ def main(argv):
 
     enable_compilation_cache()
 
-    outdir = argv[0] if argv and not argv[0].startswith("-") else "results_tpu"
+    outdir = argv[0] if argv and not argv[0].startswith("-") else "results"
     filters = argv[1:] if argv else []
     os.makedirs(os.path.join(outdir, "ppm"), exist_ok=True)
     os.makedirs(os.path.join(outdir, "png"), exist_ok=True)
